@@ -1,0 +1,453 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`repro_torch`) on one GPU and check it.
+
+    python3 chip_smoke.py                 # every phase, the full width
+    python3 chip_smoke.py --width 1024    # a narrower full-width phase
+
+Phases, each printing one JSON line:
+
+1. device and build: the card, torch/CUDA/nvcc versions, and the time
+   to build every CUDA kernel from the sources in this checkout;
+2. kernels: each kernel against its plain PyTorch version on the card,
+   bit for bit, at main-path sizes (random inputs plus 0, 1 and m-1),
+   with both times;
+3. golden bytes: the uniform 2x4 MLP, QuantConfig(16, 4), seed 7, T = 1
+   and T = 2, proved on the card, must hash to the reference's recorded
+   proof digests and verify;
+4. full width: the fcnn-zkdl-16l geometry (width 4096, batch 128,
+   QuantConfig(16, 8), T = 1) with depth cut to 2 dense+ReLU layers:
+   compile -> witness -> ProofSession.prove -> encode_proof ->
+   verify_bytes accepts, one flipped byte is rejected, and every kernel
+   was launched during the run.
+
+Then a JSON line with every kernel's numbers, the nvidia-smi name and
+power limit, and as the last line
+``{"ok": true, "device": {"platform": "gpu", ...}}``.  Exits non-zero
+(printing no result) without a GPU, outside a checkout of the
+repository, or when any phase fails.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "build")
+
+# recorded reference proof digests (tests/test_proofio.py GOLDEN_SHA256)
+GOLDEN_SHA256 = {
+    1: "a538160f1da619bd39439420f78d24af9089dd1eacd770f3ce24d76dd80c2422",
+    2: "17e8be25e9320abb55694a27615bf0093a7c0c08e290f2e11856a8d4f09b08f6",
+}
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+INT32_OPS_PER_S = 33.5e12          # 64 INT32 lanes/SM: half the 67 T FP32 rate
+MODMUL_OPS = 30                    # 32-bit integer ops per 64-bit REDC multiply
+SHA256_OPS = 3400                  # 32-bit integer ops per one-block hash
+# fcnn-zkdl-16l (src/repro/configs/fcnn_zkdl_16l.py): batch 128, 16
+# layers of width 4096; depth cut to 2 to fit the run's time and memory
+FULL_BATCH, FULL_LAYERS = 128, 2
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nvidia_smi() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return res.stdout.strip().splitlines()[0] if res.stdout.strip() else ""
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_build(state) -> dict:
+    import torch
+    from repro_torch.kernels import _build
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()
+    t0 = time.perf_counter()
+    _build.build_all()
+    regs = {name: [ln.strip() for ln in log.splitlines()
+                   if "registers" in ln]
+            for name, log in _build.build_log.items() if name != "seconds"}
+    return {"nvidia_smi": state["smi"], "torch": torch.__version__,
+            "cuda": torch.version.cuda, "nvcc": nvcc[-1] if nvcc else "",
+            "build_s": time.perf_counter() - t0, "ptxas": regs}
+
+
+def _rand_field(spec, n, rng, device):
+    import torch
+    v = rng.integers(0, spec.modulus, size=n, dtype="uint64") % spec.modulus
+    t = torch.as_tensor(v.astype("int64"), device=device)
+    t[:3] = torch.tensor([0, 1, spec.modulus - 1], device=device)
+    return t
+
+
+def _max_err(a, b) -> int:
+    return int((a - b).abs().max())
+
+
+def phase_kernels(state) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.field import FP, FQ, encode_int
+    from repro_torch.kernels import generators as gk
+    from repro_torch.kernels import modmul as mk
+    from repro_torch.kernels import sumcheck_fold as fk
+    from repro_torch.kernels import validity_tables as vk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    res, ok = {}, True
+    n = 1 << 24
+
+    errs, ms, pms = [], {}, {}
+    for spec in (FQ, FP):
+        a = _rand_field(spec, n, rng, dev)
+        b = _rand_field(spec, n, rng, dev)[torch.randperm(n, device=dev)]
+        got, want = mk.modmul(spec, a, b), mk.modmul_plain(spec, a, b)
+        errs.append(_max_err(got, want))
+        errs.append(_max_err(mk.modmul(spec, a, 12345),
+                             mk.modmul_plain(spec, a, 12345)))
+        ms[spec.name] = cuda_ms(lambda: mk.modmul(spec, a, b))
+        pms[spec.name] = cuda_ms(lambda: mk.modmul_plain(spec, a, b), 2)
+    res["modmul"] = {"n": n, "max_abs_err": max(errs), "ms": ms["Fq"],
+                     "plain_ms": pms["Fq"], "ms_fp": ms["Fp"],
+                     "plain_ms_fp": pms["Fp"],
+                     "bytes": 24 * n, "ops": MODMUL_OPS * n}
+
+    x = _rand_field(FQ, n, rng, dev)
+    r = encode_int(FQ, int(rng.integers(0, FQ.modulus, dtype="uint64")))
+    errs = [_max_err(fk.fold(x, r), fk.fold_plain(x, r)),
+            _max_err(fk.fold(x, r, inner=4096), fk.fold_plain(x, r, 4096))]
+    res["fold"] = {"n": n, "max_abs_err": max(errs),
+                   "ms": cuda_ms(lambda: fk.fold(x, r)),
+                   "plain_ms": cuda_ms(lambda: fk.fold_plain(x, r), 2),
+                   "bytes": 12 * n, "ops": MODMUL_OPS * n // 2}
+    c_hi = encode_int(FQ, 987654321)
+    err = _max_err(fk.fold_halves(x, r, c_hi),
+                   fk.fold_halves_plain(x, r, c_hi))
+    res["fold_halves"] = {
+        "n": n, "max_abs_err": err,
+        "ms": cuda_ms(lambda: fk.fold_halves(x, r, c_hi)),
+        "plain_ms": cuda_ms(lambda: fk.fold_halves_plain(x, r, c_hi), 2),
+        "bytes": 12 * n, "ops": MODMUL_OPS * n}
+    del x
+
+    # validity tables at the full-width stacked aux length Ds = 2^20
+    ds, qb, rb = 1 << 20, 16, 8
+    lim = 1 << (qb - 1)
+    zpp = torch.as_tensor(rng.integers(0, lim, ds), device=dev)
+    gap = torch.as_tensor(rng.integers(-lim, lim, ds), device=dev)
+    bq = torch.as_tensor(rng.integers(0, 2, ds), device=dev)
+    rz = torch.as_tensor(rng.integers(0, 1 << rb, ds), device=dev)
+    rga = torch.as_tensor(rng.integers(0, 1 << rb, ds), device=dev)
+    layout = vk.build_layout(zpp, gap, bq, rz, rga, qb, rb)
+    nv = layout.vals.shape[0]
+    ef = _rand_field(FQ, nv, rng, dev)
+    es = _rand_field(FQ, nv, rng, dev)
+    chal = [int(v) for v in rng.integers(0, FQ.modulus, 3, dtype="uint64")]
+    got = vk.build_tables(layout, *chal, ef, es)
+    want = vk.build_tables_plain(layout, *chal, ef, es)
+    res["validity_tables"] = {
+        "n": nv, "max_abs_err": max(_max_err(got[0], want[0]),
+                                    _max_err(got[1], want[1])),
+        "ms": cuda_ms(lambda: vk.build_tables(layout, *chal, ef, es)),
+        "plain_ms": cuda_ms(lambda: vk.build_tables_plain(layout, *chal,
+                                                          ef, es), 2),
+        "bytes": 56 * nv, "ops": MODMUL_OPS * nv}
+    del layout, ef, es, got, want
+
+    # generators: kernel vs the hashlib loop on 2^16 indices of two labels
+    ng = 1 << 16
+    errs, plain_s = [], 0.0
+    for label in (b"zkdl/gens/agg", b"zkrelu/Gpad/ds1048576-q16-r8"):
+        got = gk.derive(label, 0, ng, dev)
+        t0 = time.perf_counter()
+        want = gk.derive_plain(label, 0, ng, dev)
+        plain_s += time.perf_counter() - t0
+        errs.append(_max_err(got, want))
+    n_main = 1 << 27
+    res["generators"] = {
+        "n": n_main, "max_abs_err": max(errs),
+        "ms": cuda_ms(lambda: gk.derive(b"zkdl/gens/agg", 0, n_main, dev),
+                      2),
+        "ms_n_plain": cuda_ms(lambda: gk.derive(b"zkdl/gens/agg", 0, ng,
+                                                dev)),
+        "plain_ms": plain_s / 2 * 1e3, "plain_n": ng,
+        "bytes": 8 * n_main, "ops": SHA256_OPS * n_main}
+    for name, r_ in res.items():
+        ok &= r_["max_abs_err"] == 0
+    state["kernel_bench"] = res
+    return {"kernels": res, "bit_exact": ok, "_ok": ok}
+
+
+def phase_golden(state) -> dict:
+    import numpy as np
+    from repro_torch.core.quantfc import QuantConfig, synthetic_sgd_trajectory
+    from repro_torch.core.pipeline import (GraphBuilder, compile,
+                                           encode_proof, prove_session,
+                                           verify_bytes)
+    qc = QuantConfig(16, 4)
+    out, ok = {}, True
+    for T in (1, 2):
+        graph = GraphBuilder(batch=2).input(4).dense(4).relu() \
+            .dense(4).relu().output()
+        pk, vk = compile(graph, qc, n_steps=T, device="cuda")
+        wits = synthetic_sgd_trajectory(T, 2, 2, 4, qc, seed=7,
+                                        device="cuda")
+        raw = encode_proof(prove_session(pk, wits,
+                                         np.random.default_rng(7)))
+        digest = hashlib.sha256(raw).hexdigest()
+        verified = verify_bytes(vk, raw)
+        out[f"T{T}"] = {"sha256": digest, "golden": digest == GOLDEN_SHA256[T],
+                        "verified": verified}
+        ok &= digest == GOLDEN_SHA256[T] and verified
+    return {"golden": out, "_ok": ok}
+
+
+def _prove_again(pk, wit, profile: bool):
+    """A second prove of the same window (kernels and allocator warm);
+    with ``profile``, under torch.profiler, returning the top device
+    kernels and the share of the wall time the card was busy."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pipeline import ProofSession, encode_proof
+
+    session = ProofSession(pk, np.random.default_rng(0))
+    session.add_step(wit)
+    if not profile:
+        t0 = time.perf_counter()
+        raw = encode_proof(session.prove())
+        return raw, time.perf_counter() - t0, None
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        raw = encode_proof(session.prove())
+        wall = time.perf_counter() - t0
+    rows = []
+    busy_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue                  # operator rows repeat their kernels
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        busy_us += dev_us
+        rows.append((dev_us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    top = [{"kernel": k[:90], "device_ms": us / 1e3, "calls": c}
+           for us, k, c in rows[:15]]
+    return raw, wall, {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+                       "device_busy_share": busy_us / 1e6 / wall,
+                       "top_kernels": top}
+
+
+def phase_full(state, width: int, profile: bool = False) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core.quantfc import (QuantConfig, quantize,
+                                          train_step_witness)
+    from repro_torch.core.pipeline import (GraphBuilder, ProofSession,
+                                           compile, encode_proof,
+                                           verify_bytes)
+    from repro_torch.core.pipeline.proofio import _SECTIONS
+    from repro_torch import kernels
+
+    qc = QuantConfig()                       # (16, 8)
+    layers, batch = FULL_LAYERS, FULL_BATCH
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    b = GraphBuilder(batch=batch).input(width)
+    for _ in range(layers):
+        b = b.dense(width).relu()
+    pk, vk = compile(b.output(), qc, n_steps=1, device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+
+    # random weights from a seed, scaled by 1/sqrt(fan-in) so every
+    # rescaled activation and gradient stays inside the 16-bit range
+    # (the reference's fixed 0.3 scale overflows Z' at width 4096)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    ws = [quantize(rng.uniform(-1, 1, (width, width)) * (2 / width ** 0.5),
+                   qc) for _ in range(layers)]
+    x = quantize(rng.uniform(-1, 1, (batch, width)), qc)
+    y = quantize(rng.uniform(-1, 1, (batch, width)), qc)
+    wit = train_step_witness(x, y, ws, qc, device=dev)
+    torch.cuda.synchronize()
+    t_wit = time.perf_counter() - t0
+
+    peak_setup = torch.cuda.max_memory_allocated()
+
+    session = ProofSession(pk, np.random.default_rng(0))
+    session.add_step(wit)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proof = session.prove()
+    t_prove = time.perf_counter() - t0
+    raw = encode_proof(proof)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trace: list = []
+    accepted = verify_bytes(vk, raw, trace=trace)
+    t_verify = time.perf_counter() - t0
+    peak_verify = torch.cuda.max_memory_allocated()
+    # flip one byte inside the SC section (sumcheck messages)
+    pos, sec_start = 6, None
+    for i, _ in enumerate(_SECTIONS):
+        length = int.from_bytes(raw[pos + 1: pos + 5], "little")
+        if i == 3:
+            sec_start = pos + 5 + length // 2
+        pos += 5 + length
+    bad = bytearray(raw)
+    bad[sec_start] ^= 0x01
+    t0 = time.perf_counter()
+    rejected = not verify_bytes(vk, bytes(bad))
+    t_reject = time.perf_counter() - t0
+    state["launches"] = counts
+    raw2, t_prove_warm, trace_out = _prove_again(pk, wit, profile)
+    ok = (accepted and rejected and raw2 == raw
+          and all(v > 0 for v in counts.values()))
+    return {"width": width, "batch": batch, "layers": layers,
+            "quant": [qc.q_bits, qc.r_bits], "n_steps": 1,
+            "reduced": {"layers": [16, layers]},
+            "geometry": {"d_stack": pk.cfg.d_stack, "agg_len": pk.cfg.agg_len,
+                         "merged_len": pk.cfg.merged_len},
+            "setup_s": t_setup, "witness_s": t_wit, "prove_s": t_prove,
+            "prove_warm_s": t_prove_warm, "deterministic": raw2 == raw,
+            "device_profile": trace_out,
+            "profile": session.last_profile.as_dict(),
+            "proof_bytes": len(raw), "verify_s": t_verify,
+            "verified": accepted, "verify_trace": trace,
+            "tamper_rejected": rejected, "tamper_verify_s": t_reject,
+            "launches": counts, "max_memory_allocated": peak,
+            "max_memory_allocated_setup_witness": peak_setup,
+            "max_memory_allocated_verify": peak_verify, "_ok": ok}
+
+
+KERNEL_META = {
+    "modmul": ("src/repro_torch/kernels/modmul/modmul.cu",
+               "src/repro/kernels/modmul/kernel.py:50"),
+    "fold": ("src/repro_torch/kernels/sumcheck_fold/sumcheck_fold.cu",
+             "src/repro/kernels/sumcheck_fold/kernel.py:169"),
+    "fold_halves": ("src/repro_torch/kernels/sumcheck_fold/sumcheck_fold.cu",
+                    "src/repro/kernels/sumcheck_fold/kernel.py:74"),
+    "validity_tables": (
+        "src/repro_torch/kernels/validity_tables/validity_tables.cu",
+        "src/repro/kernels/validity_tables/kernel.py:106"),
+    "generators": ("src/repro_torch/kernels/generators/generators.cu",
+                   "none (host loop src/repro/core/group.py:381)"),
+}
+
+
+def kernel_line(state) -> dict:
+    rows = []
+    for name, (src, replaces) in KERNEL_META.items():
+        kb = state["kernel_bench"][name]
+        b_ms, b_by = bound_ms(kb["bytes"], kb["ops"])
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces,
+                     "launches": state.get("launches", {}).get(name, 0),
+                     "max_abs_err": kb["max_abs_err"], "ms": kb["ms"],
+                     "plain_ms": kb["plain_ms"], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None, "n": kb["n"]})
+    return {"kernels": rows}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--width", type=int, default=4096)
+    ap.add_argument("--phases", default="build,kernels,golden,full")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the second full-width prove with "
+                         "torch.profiler")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs on a GPU only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: cannot import repro_torch from {ROOT}/src "
+              f"({exc}); run from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+
+    phases = args.phases.split(",")
+    state = {"smi": nvidia_smi()}
+    runners = {
+        "build": lambda: phase_build(state),
+        "kernels": lambda: phase_kernels(state),
+        "golden": lambda: phase_golden(state),
+        "full": lambda: phase_full(state, args.width, args.profile),
+    }
+    failed, record = [], {}
+    for name in phases:
+        t0 = time.perf_counter()
+        try:
+            out = runners[name]()
+            ok = out.pop("_ok", True)
+        except Exception:                       # report, then fail the run
+            out, ok = {"error": traceback.format_exc()}, False
+        out = {"phase": name, "ok": ok,
+               "seconds": time.perf_counter() - t0, **out}
+        record[name] = out
+        emit(out)
+        if not ok:
+            failed.append(name)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1, default=str)
+    if failed:
+        print(f"chip_smoke: phases failed: {failed}", file=sys.stderr)
+        return 1
+    if "kernels" in phases:
+        emit(kernel_line(state))
+    print(state["smi"], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,38 @@
+"""Hand-written CUDA kernels of the port (sm_90a), one directory each.
+
+* ``modmul``          -- elementwise Montgomery multiply (replaces the
+                         Pallas ``modmul_planes``); every on-card field
+                         and group product of the port runs through it.
+* ``sumcheck_fold``   -- the sumcheck variable fold and the IPA halves
+                         fold (replace ``fold_planes`` and
+                         ``fold_halves_planes``).
+* ``validity_tables`` -- both zkReLU eq. (19) tables in one launch
+                         (replaces ``validity_tables_planes``).
+* ``generators``      -- hash-to-group generator derivation, the port's
+                         own kernel (the reference derives on the host).
+
+Each directory holds the ``.cu`` source and an ``ops.py`` with the
+wrapper, its plain PyTorch version (used for CPU tensors, and as the
+oracle the kernel is held against on the card) and a launch counter.
+`_build` compiles the sources with nvcc on first use.
+"""
+from __future__ import annotations
+
+
+def _wrappers() -> dict:
+    from repro_torch.kernels.generators.ops import derive
+    from repro_torch.kernels.modmul.ops import modmul
+    from repro_torch.kernels.sumcheck_fold.ops import fold, fold_halves
+    from repro_torch.kernels.validity_tables.ops import build_tables
+    return {"modmul": modmul, "fold": fold, "fold_halves": fold_halves,
+            "validity_tables": build_tables, "generators": derive}
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0

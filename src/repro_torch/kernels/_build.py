@@ -1,0 +1,130 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each kernel directory holds one ``.cu`` file with a plain C interface
+(no PyTorch headers, so each compiles in seconds).  The first kernel
+call of a process builds every source at once, one ``nvcc`` process per
+source started together, into ``build/kernels/`` at the repository root
+(listed in ``.gitignore``); the library name carries a hash of the
+sources and flags, so an unchanged tree reuses its libraries.  Nothing
+is built when a module is imported: the CPU tests import every module
+and never call a kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+KERNEL_DIR = pathlib.Path(__file__).resolve().parent
+REPO_ROOT = KERNEL_DIR.parents[2]
+BUILD_DIR = REPO_ROOT / "build" / "kernels"
+
+#: kernel library name -> source file relative to this directory
+SOURCES = {
+    "modmul": "modmul/modmul.cu",
+    "sumcheck_fold": "sumcheck_fold/sumcheck_fold.cu",
+    "validity_tables": "validity_tables/validity_tables.cu",
+    "generators": "generators/generators.cu",
+}
+HEADERS = ("mont64.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_U64 = ctypes.c_uint64
+_INT = ctypes.c_int
+#: C signatures of the exported launchers (argtypes; every one returns
+#: the cudaError_t of its launch as an int)
+SIGNATURES = {
+    "zk_modmul": (_P, _I64, _P, _I64, _P, _I64, _U64, _U64, _P),
+    "zk_modmul_scalar": (_P, _U64, _P, _I64, _U64, _U64, _P),
+    "zk_fold": (_P, _P, _I64, _I64, _U64, _U64, _U64, _P),
+    "zk_fold_halves": (_P, _P, _P, _I64, _U64, _U64, _U64, _U64, _P),
+    "zk_validity_tables": (_P,) * 10 + (_I64,) + (_U64,) * 6 + (_P,),
+    "zk_derive_generators": (_P, _INT, _I64, _I64, _P, _U64, _U64, _U64,
+                             _P),
+}
+
+_lock = threading.Lock()
+_libs: dict = {}
+#: seconds spent in the last `build_all` and the compiler's reports
+build_log: dict = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (nvcc on PATH or /usr/local/cuda)")
+    return path
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in (SOURCES[name],) + HEADERS:
+        h.update((KERNEL_DIR / rel).read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict:
+    """Compile every kernel source that has no current library, all
+    ``nvcc`` processes started together; load all libraries.  Returns
+    ``{name: ctypes.CDLL}``.  Raises if a compile fails."""
+    with _lock:
+        if len(_libs) == len(SOURCES):
+            return dict(_libs)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        procs = {}
+        for name, rel in SOURCES.items():
+            out = _lib_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, f"-I{KERNEL_DIR}", "-o", str(tmp),
+                   str(KERNEL_DIR / rel)]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out)
+        errors = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            build_log[name] = log
+            if proc.returncode != 0:
+                errors.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            else:
+                os.replace(tmp, out)
+        build_log["seconds"] = time.perf_counter() - t0
+        if errors:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+        for name in SOURCES:
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in SIGNATURES.items():
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = list(argtypes)
+                    getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return dict(_libs)
+
+
+def lib(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        build_all()
+    return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a refused launch (the C launcher returns cudaGetLastError)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def stream_handle(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

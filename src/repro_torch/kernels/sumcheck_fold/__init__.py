@@ -1,0 +1,2 @@
+from repro_torch.kernels.sumcheck_fold.ops import (  # noqa: F401
+    fold, fold_halves, fold_halves_plain, fold_plain)

@@ -22,6 +22,10 @@ def pytest_configure(config):
         "(negative returncode) only — real test failures (a clean exit "
         "with a failed assertion) are never retried.  Deselect the whole "
         "quarantine with `-m 'not flaky_subprocess'`.")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device; the test skips itself without one "
+        "(run the marked tests on the card with `-m gpu`).")
 
 
 @pytest.fixture

@@ -1,0 +1,77 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``: without a CUDA device every test skips itself.  This
+file imports neither jax nor the reference, so it runs on a machine
+with only PyTorch and the CUDA toolkit (``--noconftest`` skips the
+suite's conftest, which imports jax):
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.field import FP, FQ, encode_int
+from repro_torch.kernels import generators as gk
+from repro_torch.kernels import modmul as mk
+from repro_torch.kernels import sumcheck_fold as fk
+from repro_torch.kernels import validity_tables as vk
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _field(spec, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    v = rng.integers(0, spec.modulus, n, dtype=np.uint64) % spec.modulus
+    t = torch.as_tensor(v.astype(np.int64), device=dev)
+    t[:3] = torch.tensor([0, 1, spec.modulus - 1], device=dev)
+    return t
+
+
+@pytest.mark.parametrize("spec", [FQ, FP], ids=["Fq", "Fp"])
+def test_modmul_kernel_matches_plain(dev, spec):
+    a, b = _field(spec, 4099, 1, dev), _field(spec, 4099, 2, dev)
+    before = kernels.launch_counts()["modmul"]
+    assert torch.equal(mk.modmul(spec, a, b), mk.modmul_plain(spec, a, b))
+    assert torch.equal(mk.modmul(spec, a, 77), mk.modmul_plain(spec, a, 77))
+    assert torch.equal(mk.modmul(spec, a[:, None], b[None, :5]),
+                       mk.modmul_plain(spec, a[:, None], b[None, :5]))
+    assert kernels.launch_counts()["modmul"] == before + 3
+
+
+def test_fold_kernels_match_plain(dev):
+    x = _field(FQ, 1 << 12, 3, dev)
+    r, c = encode_int(FQ, 12345), encode_int(FQ, 678)
+    assert torch.equal(fk.fold(x, r), fk.fold_plain(x, r))
+    assert torch.equal(fk.fold(x, r, inner=64), fk.fold_plain(x, r, 64))
+    assert torch.equal(fk.fold_halves(x, r, c), fk.fold_halves_plain(x, r, c))
+
+
+def test_validity_tables_kernel_matches_plain(dev):
+    rng = np.random.default_rng(4)
+    ds, qb, rb = 64, 16, 8
+    lim = 1 << (qb - 1)
+    aux = [rng.integers(0, lim, ds), rng.integers(-lim, lim, ds),
+           rng.integers(0, 2, ds), rng.integers(0, 1 << rb, ds),
+           rng.integers(0, 1 << rb, ds)]
+    layout = vk.build_layout(*[torch.as_tensor(a, device=dev) for a in aux],
+                             qb, rb)
+    n = layout.vals.shape[0]
+    ef, es = _field(FQ, n, 5, dev), _field(FQ, n, 6, dev)
+    got = vk.build_tables(layout, 7, 8, 9, ef, es)
+    want = vk.build_tables_plain(layout, 7, 8, 9, ef, es)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_generator_kernel_matches_hashlib(dev):
+    for label in (b"zkdl/gens/agg", b"x" * gk.MAX_LABEL_BYTES):
+        assert torch.equal(gk.derive(label, 3, 500, dev),
+                           gk.derive_plain(label, 3, 500, dev))
