@@ -18,7 +18,15 @@ Phases, each printing one JSON line:
    QuantConfig(16, 8), T = 1) with depth cut to 2 dense+ReLU layers:
    compile -> witness -> ProofSession.prove -> encode_proof ->
    verify_bytes accepts, one flipped byte is rejected, and every kernel
-   was launched during the run.
+   was launched during the run;
+5. train: prove-while-train at the same geometry, window 1, two steps
+   through `launch.steps.build_zkdl_step` + `ZkdlProveHook` (the second
+   step's witness on the weights the first updated on the card); both
+   windows' bytes verify and a flipped byte is rejected; then one T = 2
+   window at width 1024 (aggregation across two on-card SGD steps), all
+   with 2/sqrt(width) weights and an SGD step of 2^-16;
+6. open: the open IPA (`open_prove` / `open_verify`) at n = 2^20, and a
+   wrong claim rejected.
 
 Then a JSON line with every kernel's numbers, the nvidia-smi name and
 power limit, and as the last line
@@ -47,11 +55,19 @@ GOLDEN_SHA256 = {
 }
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12          # 64 INT32 lanes/SM: half the 67 T FP32 rate
+INT8_TC_OPS_PER_S = 1979e12        # int8 tensor cores, dense
 MODMUL_OPS = 30                    # 32-bit integer ops per 64-bit REDC multiply
 SHA256_OPS = 3400                  # 32-bit integer ops per one-block hash
 # fcnn-zkdl-16l (src/repro/configs/fcnn_zkdl_16l.py): batch 128, 16
 # layers of width 4096; depth cut to 2 to fit the run's time and memory
 FULL_BATCH, FULL_LAYERS = 128, 2
+# the train phase's extra T = 2 window (aggregation across SGD steps)
+AGG_WIDTH, AGG_STEPS = 1024, 2
+# SGD step 2^-16 for the train phase: G_W is a sum over the batch, and
+# at width 4096 and batch 128 the reference trainer's 2^-8 moves the
+# weights so far that the second step's Z' leaves the 16-bit range
+TRAIN_LR_SHIFT = 16
+OPEN_N = 1 << 20
 
 
 def emit(obj) -> None:
@@ -72,9 +88,10 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = INT32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -205,10 +222,99 @@ def phase_kernels(state) -> dict:
                                                 dev)),
         "plain_ms": plain_s / 2 * 1e3, "plain_n": ng,
         "bytes": 8 * n_main, "ops": SHA256_OPS * n_main}
+    res["pow_mul"] = _bench_pow_mul(rng, dev)
+    res["qmatmul"] = _bench_qmatmul(rng, dev)
     for name, r_ in res.items():
         ok &= r_["max_abs_err"] == 0
     state["kernel_bench"] = res
     return {"kernels": res, "bit_exact": ok, "_ok": ok}
+
+
+def _pair_fold_modmuls(e_hi: int) -> int:
+    """Multiplies per output word of pow_mul with e_lo = 1 (the lo chain
+    skipped): a squaring per bit below the top one, a multiply per set
+    bit, and the final lo * hi^{e_hi}."""
+    return e_hi.bit_length() - 1 + bin(e_hi).count("1") + 1
+
+
+def _bench_pow_mul(rng, dev) -> dict:
+    """pow_mul against its plain version at 2^24 outputs (0, 1 and p-1 in
+    both halves; the pair fold's e_lo = 1, top bits set, a zero
+    exponent), then timed at a pair-fold half of the full-width merged
+    IPA (2^26 outputs: round 2 of a 2^28 merged length)."""
+    from repro_torch.field import FP
+    from repro_torch.kernels import sumcheck_fold as fk
+
+    n_cmp, n_main = 1 << 24, 1 << 26
+    gens = _rand_field(FP, 2 * n_cmp, rng, dev)
+    gens[n_cmp:n_cmp + 3] = gens[:3].flip(0)
+    e_main = int(rng.integers(1 << 60, 1 << 61, dtype="uint64"))
+    pairs = [(1, e_main), ((1 << 61) - 1, 1 << 60), (0, e_main)]
+    errs = [_max_err(fk.pow_mul_halves(gens, *e), fk.pow_mul_plain(gens, *e))
+            for e in pairs]
+    plain_ms = cuda_ms(lambda: fk.pow_mul_plain(gens, 1, e_main), 1)
+    del gens
+    big = _rand_field(FP, 2 * n_main, rng, dev)
+    mm = _pair_fold_modmuls(e_main)
+    return {"n": n_main, "max_abs_err": max(errs),
+            "ms": cuda_ms(lambda: fk.pow_mul_halves(big, 1, e_main)),
+            "plain_ms": plain_ms, "plain_n": n_cmp,
+            "exponents": [1, e_main], "modmuls_per_word": mm,
+            "bytes": 24 * n_main, "ops": MODMUL_OPS * mm * n_main}
+
+
+def _bench_qmatmul(rng, dev) -> dict:
+    """qmatmul at the witness shapes (Z = A W: 128 x 4096 x 4096; G_W =
+    G_Z^T A: 4096 x 128 x 4096) and a ragged one, bit for bit against
+    the plain version on CPU copies (CUDA has no integer matmul); the
+    library yardstick is four torch._int_mm calls, which the port never
+    makes."""
+    import torch
+    from repro_torch.kernels import qmatmul as qk
+
+    shapes = [(FULL_BATCH, 4096, 4096), (4096, FULL_BATCH, 4096),
+              (1000, 777, 333)]
+    errs, out = [], {}
+    for m, k, n in shapes:
+        a = torch.as_tensor(rng.integers(-2 ** 15, 2 ** 15, (m, k)),
+                            dtype=torch.int16)
+        b = torch.as_tensor(rng.integers(-2 ** 15, 2 ** 15, (k, n)),
+                            dtype=torch.int16)
+        a.view(-1)[:2] = torch.tensor([-2 ** 15, 2 ** 15 - 1])
+        b.view(-1)[:2] = torch.tensor([2 ** 15 - 1, -2 ** 15])
+        digits = qk.digit_operands(a.to(dev), b.to(dev))[:4]
+        got = qk.qmatmul_digits(*digits)
+        cpu_digits = [d.cpu() for d in digits]
+        t0 = time.perf_counter()
+        want = qk.qmatmul_digits_plain(*cpu_digits)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs += [_max_err(g.cpu().long(), w.long()) for g, w in zip(got, want)]
+        errs.append(_max_err(qk.qmatmul_i64(a.to(dev), b.to(dev)).cpu(),
+                             qk.qmatmul_i64(a, b)))
+        # torch._int_mm takes M > 16 and K, N multiples of 8
+        pairs, lib = None, None
+        if m > 16 and n % 8 == 0:
+            a_hi, a_c, bt_hi, bt_c = digits
+            b_hi, b_c = bt_hi.T.contiguous(), bt_c.T.contiguous()
+            pairs = [(a_hi, b_hi), (a_hi, b_c), (a_c, b_hi), (a_c, b_c)]
+            lib = [torch._int_mm(x, y) for x, y in pairs]
+        out[f"{m}x{k}x{n}"] = {
+            "ms": cuda_ms(lambda: qk.qmatmul_digits(*digits)),
+            "plain_ms_cpu": plain_ms,
+            "library_ms": cuda_ms(lambda: [torch._int_mm(x, y)
+                                           for x, y in pairs])
+            if lib is not None else None,
+            "library_equal": lib is not None and all(
+                torch.equal(l_, g) for l_, g in zip(lib, got)),
+            "bytes": 2 * m * k + 2 * k * n + 16 * m * n,
+            "ops": 4 * 2 * m * n * k}
+        del digits, got, want, lib, pairs
+    main = out[f"{FULL_BATCH}x4096x4096"]
+    return {"n": f"{FULL_BATCH}x4096x4096", "max_abs_err": max(errs),
+            "ms": main["ms"], "plain_ms": main["plain_ms_cpu"],
+            "plain_device": "cpu", "library_ms": main["library_ms"],
+            "bytes": main["bytes"], "ops": main["ops"],
+            "ops_per_s": INT8_TC_OPS_PER_S, "shapes": out}
 
 
 def phase_golden(state) -> dict:
@@ -280,7 +386,6 @@ def phase_full(state, width: int, profile: bool = False) -> dict:
     from repro_torch.core.pipeline import (GraphBuilder, ProofSession,
                                            compile, encode_proof,
                                            verify_bytes)
-    from repro_torch.core.pipeline.proofio import _SECTIONS
     from repro_torch import kernels
 
     qc = QuantConfig()                       # (16, 8)
@@ -327,17 +432,8 @@ def phase_full(state, width: int, profile: bool = False) -> dict:
     accepted = verify_bytes(vk, raw, trace=trace)
     t_verify = time.perf_counter() - t0
     peak_verify = torch.cuda.max_memory_allocated()
-    # flip one byte inside the SC section (sumcheck messages)
-    pos, sec_start = 6, None
-    for i, _ in enumerate(_SECTIONS):
-        length = int.from_bytes(raw[pos + 1: pos + 5], "little")
-        if i == 3:
-            sec_start = pos + 5 + length // 2
-        pos += 5 + length
-    bad = bytearray(raw)
-    bad[sec_start] ^= 0x01
     t0 = time.perf_counter()
-    rejected = not verify_bytes(vk, bytes(bad))
+    rejected = not verify_bytes(vk, _tamper(raw))
     t_reject = time.perf_counter() - t0
     state["launches"] = counts
     raw2, t_prove_warm, trace_out = _prove_again(pk, wit, profile)
@@ -360,6 +456,156 @@ def phase_full(state, width: int, profile: bool = False) -> dict:
             "max_memory_allocated_verify": peak_verify, "_ok": ok}
 
 
+def _tamper(raw: bytes) -> bytes:
+    """Flip one byte inside the SC section (sumcheck messages)."""
+    from repro_torch.core.pipeline.proofio import _SECTIONS
+    pos, sec_start = 6, None
+    for i, _ in enumerate(_SECTIONS):
+        length = int.from_bytes(raw[pos + 1: pos + 5], "little")
+        if i == 3:
+            sec_start = pos + 5 + length // 2
+        pos += 5 + length
+    bad = bytearray(raw)
+    bad[sec_start] ^= 0x01
+    return bytes(bad)
+
+
+def _train_run(width: int, window: int, n_steps: int, seed: int) -> dict:
+    """Prove-while-train through the port's step and hook: ``n_steps``
+    integer SGD steps on the card, one aggregated proof per ``window``
+    steps; every window's bytes verified from bytes and tampered."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.pipeline import compile, encode_proof, verify_bytes
+    from repro_torch.core.quantfc import QuantConfig, quantize
+    from repro_torch.launch import steps
+
+    qc = QuantConfig()                       # (16, 8)
+    dev = torch.device("cuda")
+    zk_cfg = steps.build_proof_pipeline_config(
+        get_config("fcnn-zkdl-16l"), batch=FULL_BATCH, n_steps=window,
+        widths=(width,) * (FULL_LAYERS + 1))
+    t0 = time.perf_counter()
+    pk, vk = compile(zk_cfg.graph, qc, n_steps=window, device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    # 2/sqrt(width) weights as in phase_full: the reference trainer's
+    # 0.3 scale overflows Z' at width 4096
+    rng = np.random.default_rng(seed)
+    ws0 = [torch.as_tensor(quantize(
+        rng.uniform(-1, 1, (width, width)) * (2 / width ** 0.5), qc),
+        device=dev) for _ in range(FULL_LAYERS)]
+    hook = steps.ZkdlProveHook(pk, rng, verify=False)
+    step_fn = steps.build_zkdl_step(zk_cfg, lr_shift=TRAIN_LR_SHIFT,
+                                    device=dev)
+    ws, witness_s = ws0, []
+    for step in range(n_steps):
+        batch = {"x": quantize(rng.uniform(-1, 1, (FULL_BATCH, width)), qc),
+                 "y": quantize(rng.uniform(-1, 1, (FULL_BATCH, width)), qc)}
+        t0 = time.perf_counter()
+        ws, wit = step_fn(ws, batch)
+        torch.cuda.synchronize()
+        witness_s.append(time.perf_counter() - t0)
+        hook.observe(step, wit)
+    on_card = all(w.is_cuda for w in ws)
+    changed = any(not torch.equal(a, b) for a, b in zip(ws0, ws))
+    windows, ok = [], on_card and changed and hook.n_pending == 0
+    for _, proof, prove_s in hook.proofs:
+        raw = encode_proof(proof)
+        t0 = time.perf_counter()
+        accepted = verify_bytes(vk, raw, label=b"zkdl/train")
+        verify_s = time.perf_counter() - t0
+        rejected = not verify_bytes(vk, _tamper(raw), label=b"zkdl/train")
+        windows.append({"prove_s": prove_s, "verify_s": verify_s,
+                        "proof_bytes": len(raw),
+                        "sha256": hashlib.sha256(raw).hexdigest(),
+                        "verified": accepted, "tamper_rejected": rejected})
+        ok &= accepted and rejected
+    return {"width": width, "window": window, "steps": n_steps,
+            "merged_len": pk.cfg.merged_len, "setup_s": t_setup,
+            "witness_s": witness_s, "weights_on_card": on_card,
+            "weights_changed": changed,
+            "windows": windows, "_ok": ok}
+
+
+def phase_train(state, width: int) -> dict:
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import ipa
+    from repro_torch.kernels import modmul as mk
+    from repro_torch.launch import steps
+
+    # geometry of the window sizes the card cannot hold at this width
+    geometry = {f"T{t}": steps.build_proof_pipeline_config(
+        get_config("fcnn-zkdl-16l"), batch=FULL_BATCH, n_steps=t,
+        widths=(width,) * (FULL_LAYERS + 1)).merged_len for t in (1, 2, 4)}
+    pair_fold_modmuls = []
+    orig = ipa._pair_fold
+
+    def counted(*args):
+        before = mk.modmul.launches
+        out = orig(*args)
+        pair_fold_modmuls.append(mk.modmul.launches - before)
+        return out
+
+    ipa._pair_fold = counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        main = _train_run(width, 1, 2, seed=1)
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        ipa._pair_fold = orig
+    state["launches_train"] = counts
+    torch.cuda.reset_peak_memory_stats()
+    agg = _train_run(AGG_WIDTH, AGG_STEPS, AGG_STEPS, seed=2)
+    ok = (main.pop("_ok") and agg.pop("_ok") and counts["qmatmul"] > 0
+          and counts["pow_mul"] > 0 and len(pair_fold_modmuls) > 0
+          and sum(pair_fold_modmuls) == 0)
+    return {"width": width, "batch": FULL_BATCH, "layers": FULL_LAYERS,
+            "quant": [16, 8], "lr_shift": TRAIN_LR_SHIFT,
+            "reduced": {"layers": [16, FULL_LAYERS], "prove_window": [4, 1]},
+            "merged_len_by_window": geometry, "main": main,
+            "launches": counts, "pair_fold_calls": len(pair_fold_modmuls),
+            "pair_fold_modmul_launches": sum(pair_fold_modmuls),
+            "max_memory_allocated": peak,
+            "aggregated_T2": dict(agg, max_memory_allocated=(
+                torch.cuda.max_memory_allocated())), "_ok": ok}
+
+
+def phase_open(state) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core import ipa, pedersen
+    from repro_torch.core.mle import fdot
+    from repro_torch.core.transcript import Transcript
+    from repro_torch.field import FQ, decode
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    n = OPEN_N
+    a, b = _rand_field(FQ, n, rng, dev), _rand_field(FQ, n, rng, dev)
+    claim = int(decode(FQ, fdot(a, b).reshape(()))[()])
+    key = pedersen.make_key(b"smoke/open", n, dev)
+    com = pedersen.commit(key, a, 777)
+    t0 = time.perf_counter()
+    proof = ipa.open_prove(key, a, b, 777, claim, Transcript(b"smoke"),
+                           np.random.default_rng(3))
+    prove_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    accepted = ipa.open_verify(key, com, b, claim, proof,
+                               Transcript(b"smoke"))
+    verify_s = time.perf_counter() - t0
+    rejected = not ipa.open_verify(key, com, b, (claim + 1) % FQ.modulus,
+                                   proof, Transcript(b"smoke"))
+    return {"n": n, "rounds": len(proof.ls), "prove_s": prove_s,
+            "verify_s": verify_s, "verified": accepted,
+            "wrong_claim_rejected": rejected, "_ok": accepted and rejected}
+
+
 KERNEL_META = {
     "modmul": ("src/repro_torch/kernels/modmul/modmul.cu",
                "src/repro/kernels/modmul/kernel.py:50"),
@@ -372,6 +618,10 @@ KERNEL_META = {
         "src/repro/kernels/validity_tables/kernel.py:106"),
     "generators": ("src/repro_torch/kernels/generators/generators.cu",
                    "none (host loop src/repro/core/group.py:381)"),
+    "pow_mul": ("src/repro_torch/kernels/sumcheck_fold/sumcheck_fold.cu",
+                "src/repro/kernels/sumcheck_fold/kernel.py:144"),
+    "qmatmul": ("src/repro_torch/kernels/qmatmul/qmatmul.cu",
+                "src/repro/kernels/qmatmul/kernel.py:93"),
 }
 
 
@@ -379,20 +629,25 @@ def kernel_line(state) -> dict:
     rows = []
     for name, (src, replaces) in KERNEL_META.items():
         kb = state["kernel_bench"][name]
-        b_ms, b_by = bound_ms(kb["bytes"], kb["ops"])
+        b_ms, b_by = bound_ms(kb["bytes"], kb["ops"],
+                              kb.get("ops_per_s", INT32_OPS_PER_S))
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": state.get("launches", {}).get(name, 0),
+                     "launches_train": state.get("launches_train",
+                                                 {}).get(name, 0),
                      "max_abs_err": kb["max_abs_err"], "ms": kb["ms"],
                      "plain_ms": kb["plain_ms"], "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None, "n": kb["n"]})
+                     "bound_by": b_by,
+                     "library_ms": kb.get("library_ms"), "n": kb["n"]})
     return {"kernels": rows}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--width", type=int, default=4096)
-    ap.add_argument("--phases", default="build,kernels,golden,full")
+    ap.add_argument("--phases",
+                    default="build,kernels,golden,full,train,open")
     ap.add_argument("--profile", action="store_true",
                     help="trace the second full-width prove with "
                          "torch.profiler")
@@ -419,6 +674,8 @@ def main(argv=None) -> int:
         "kernels": lambda: phase_kernels(state),
         "golden": lambda: phase_golden(state),
         "full": lambda: phase_full(state, args.width, args.profile),
+        "train": lambda: phase_train(state, args.width),
+        "open": lambda: phase_open(state),
     }
     failed, record = [], {}
     for name in phases:

@@ -1,21 +1,28 @@
-"""Zero-knowledge pair inner-product argument (Bulletproofs style).
+"""Zero-knowledge inner-product arguments (Bulletproofs style).
 
-``pair_*`` proves <a, b> = c where BOTH vectors are bound inside one
-commitment C = h^rho G^a H^b -- the statement Algorithm 1 produces for
-the zkReLU validity equation (19), and the shape of the pipeline's one
-merged opening.  Honest-verifier zero knowledge comes from per-round
-blinds on L/R plus a final sigma opening.
+Two variants, both log-size and linear-prover-time:
+
+* ``open_*`` proves <a, b_pub> = c for a *committed* vector a and a
+  *public* vector b (the MLE-opening workhorse: b = e(u)).
+* ``pair_*`` proves <a, b> = c where BOTH vectors are bound inside one
+  commitment C = h^rho G^a H^b -- the statement Algorithm 1 produces for
+  the zkReLU validity equation (19), and the shape of the pipeline's one
+  merged opening.
+
+Honest-verifier zero knowledge comes from per-round blinds on L/R plus
+a final sigma opening.
 
 Each prover round is one MSM each for L and R (the two half-MSMs per
 side as one row; the u^{c} claim term and the h^{rho} blind as a
 two-term tail), one host transfer for the transcript, and the folds:
 the scalar halves through the `fold_halves` kernel, the generator
-halves as one merge g_lo * g_hi^{e} with the outer exponent deferred
+halves through the `pow_mul` kernel: in the pair rounds as one merge
+g_lo * g_hi^{e} (its e_lo = 1 case) with the outer exponent deferred
 into ``gam_g`` / ``gam_h`` (applied to the two surviving generators
-before the sigma finale).  Every emitted group element equals the
-reference's (`repro.core.ipa`) bit for bit.  The reference's "ladder"
-round schedule only bounds XLA compiles and has no counterpart; the
-variable-1 `open_*` argument is not part of this port yet.
+before the sigma finale), in the open rounds as g_lo^{ali} * g_hi^{al}.
+Every emitted group element equals the reference's (`repro.core.ipa`)
+bit for bit.  The reference's "ladder" round schedule only bounds XLA
+compiles and has no counterpart.
 """
 from __future__ import annotations
 
@@ -32,6 +39,9 @@ from repro_torch.core.transcript import Transcript
 # the IPA scalar fold c_lo * v[:n/2] + c_hi * v[n/2:] is the fold_halves
 # kernel itself (reference: `_fold_halves`, ipa.py:199)
 from repro_torch.kernels.sumcheck_fold import fold_halves as _fold_halves
+# the IPA generator fold lo^{e_lo} * hi^{e_hi} (reference: the Pallas
+# route of `_open_fold_dispatch`, ipa.py:224)
+from repro_torch.kernels.sumcheck_fold import pow_mul_halves
 
 Q = FQ.modulus
 
@@ -50,6 +60,20 @@ class IpaProof:
 
     def size_bytes(self) -> int:
         return 32 * (len(self.ls) + len(self.rs) + len(self.sigma))
+
+
+def _dec_scalar(x: torch.Tensor) -> int:
+    return int(decode(FQ, x.reshape(()))[()])
+
+
+def _exp1(e: int) -> int:
+    """One python-int exponent -> its standard form mod q."""
+    return int(e) % Q
+
+
+def _fold_vec(t: torch.Tensor, lo_coef: int, hi_coef: int) -> torch.Tensor:
+    """lo_coef * t[:n/2] + hi_coef * t[n/2:] for python-int coefficients."""
+    return _fold_halves(t, enc(lo_coef), enc(hi_coef))
 
 
 def _u_gen(device) -> torch.Tensor:
@@ -155,9 +179,120 @@ def _pair_fold(a, b, gg, hh, al: int, ali: int, al2: int, ali2: int):
     n2 = a.shape[0] // 2
     a2 = _fold_halves(a, enc(al), enc(ali))
     b2 = _fold_halves(b, enc(ali), enc(al))
-    gg2 = group.g_mul(gg[:n2], group.g_pow_int(gg[n2:], al2))
-    hh2 = group.g_mul(hh[:n2], group.g_pow_int(hh[n2:], ali2))
+    gg2 = pow_mul_halves(gg, 1, _exp1(al2))
+    hh2 = pow_mul_halves(hh, 1, _exp1(ali2))
     return a2, b2, gg2, hh2
+
+
+# ---------------------------------------------------------------------------
+# Variant 1: committed a, public b.
+# ---------------------------------------------------------------------------
+
+def _open_round_lr(gens, a, b, up, h, rho_l: int, rho_r: int
+                   ) -> torch.Tensor:
+    """L/R of one `open` round:
+
+    L = gens_hi^{a_lo} * up^{<a_lo, b_hi>} * h^{rho_l}
+    R = gens_lo^{a_hi} * up^{<a_hi, b_lo>} * h^{rho_r}
+    """
+    n2 = a.shape[0] // 2
+    c_l, c_r = _claims(a, b)
+    a_std = from_mont(FQ, a)
+    main = torch.stack([group.msm(gens[n2:], a_std[:n2]),
+                        group.msm(gens[:n2], a_std[n2:])])
+    return group.g_mul(main, _lr_extras(up, h, c_l, c_r, rho_l, rho_r))
+
+
+def _open_fold(a, b, gens, al: int, ali: int):
+    """a' = al*a_lo + ali*a_hi, b' = ali*b_lo + al*b_hi and
+    gens' = gens_lo^{ali} * gens_hi^{al}: two `fold_halves` launches and
+    one `pow_mul` launch (the reference's Pallas route, ipa.py:231-234)."""
+    a2 = _fold_halves(a, enc(al), enc(ali))
+    b2 = _fold_halves(b, enc(ali), enc(al))
+    return a2, b2, pow_mul_halves(gens, _exp1(ali), _exp1(al))
+
+
+def open_prove(key, a_mont: torch.Tensor, b_mont: torch.Tensor, blind: int,
+               claim: int, transcript: Transcript, rng: np.random.Generator,
+               prof=None) -> IpaProof:
+    """Prove <a, b> = claim for a committed in ``key`` with ``blind``
+    (com = h^blind gens^a) and b public; both in Montgomery form."""
+    n = a_mont.shape[0]
+    assert n & (n - 1) == 0 and b_mont.shape[0] == n
+    dev = a_mont.device
+    gens = key.gens[:n]
+    transcript.absorb_int(b"ipa/claim", claim)
+    x = transcript.challenge_int(b"ipa/x", Q)
+    up = group.g_pow_int(_u_gen(dev), x)
+
+    a, b, rho = a_mont, b_mont, int(blind)
+    ls, rs = [], []
+    with _sub(prof, "ipa-rounds"):
+        while n > 1:
+            rho_l, rho_r = _rand(rng), _rand(rng)
+            li, ri = group.decode_group_many(
+                _open_round_lr(gens, a, b, up, key.h, rho_l, rho_r))
+            ls.append(li)
+            rs.append(ri)
+            transcript.absorb_ints(b"ipa/lr", [li, ri])
+            al = transcript.challenge_int(b"ipa/alpha", Q)
+            ali = pow(al, Q - 2, Q)
+            a, b, gens = _open_fold(a, b, gens, al, ali)
+            rho = (al * al % Q * rho_l + rho + ali * ali % Q * rho_r) % Q
+            n //= 2
+
+    with _sub(prof, "sigma"):
+        # final Schnorr opening of P_f = base^a h^rho, base = g_f up^{b_f}
+        a_f, b_f = (int(v) for v in decode(FQ, torch.stack([a[0], b[0]])))
+        s, s_rho = _rand(rng), _rand(rng)
+        # K = base^s h^{s_rho} = gens_f^s up^{s b_f} h^{s_rho}
+        ki = group.decode_group(group.msm(
+            torch.stack([gens[0], up, key.h]),
+            group.exps_from_ints([s, s * b_f % Q, s_rho], dev)))
+        transcript.absorb_int(b"ipa/K", ki)
+        e = transcript.challenge_int(b"ipa/e", Q)
+        z = (s + e * a_f) % Q
+        z_rho = (s_rho + e * rho) % Q
+    return IpaProof(ls, rs, [ki, z, z_rho])
+
+
+def open_verify(key, com: torch.Tensor, b_mont: torch.Tensor, claim: int,
+                proof: IpaProof, transcript: Transcript) -> bool:
+    """Verify an `open_prove` proof of <a, b> = claim against com."""
+    n = b_mont.shape[0]
+    assert n & (n - 1) == 0
+    if len(proof.ls) != n.bit_length() - 1 or \
+            len(proof.rs) != len(proof.ls) or len(proof.sigma) != 3:
+        return False
+    dev = b_mont.device
+    gens = key.gens[:n]
+    transcript.absorb_int(b"ipa/claim", claim)
+    x = transcript.challenge_int(b"ipa/x", Q)
+    up = group.g_pow_int(_u_gen(dev), x)
+    p = group.g_mul(com, group.g_pow_int(up, claim))
+
+    b = b_mont
+    alphas = []
+    for li, ri in zip(proof.ls, proof.rs):
+        transcript.absorb_ints(b"ipa/lr", [li, ri])
+        al = transcript.challenge_int(b"ipa/alpha", Q)
+        ali = pow(al, Q - 2, Q)
+        alphas.append(al)
+        b = _fold_vec(b, ali, al)
+        p = group.g_mul(p, group.msm(
+            torch.stack([group.encode_group(li, dev),
+                         group.encode_group(ri, dev)]),
+            group.exps_from_ints([al * al % Q, ali * ali % Q], dev)))
+
+    s = _s_vector(n, alphas, low_exp_is_inv=True, device=dev)
+    g_f = group.msm_field(gens, s)
+    base = group.g_mul(g_f, group.g_pow_int(up, _dec_scalar(b[0])))
+    ki, z, z_rho = proof.sigma
+    transcript.absorb_int(b"ipa/K", ki)
+    e = transcript.challenge_int(b"ipa/e", Q)
+    lhs = group.g_mul(group.g_pow_int(base, z), group.g_pow_int(key.h, z_rho))
+    rhs = group.g_mul(group.encode_group(ki, dev), group.g_pow_int(p, e))
+    return group.decode_group(lhs) == group.decode_group(rhs)
 
 
 def pair_prove_many(stmts, transcript: Transcript,

@@ -11,6 +11,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.field import FQ, from_mont
 from repro_torch.core import group
 
@@ -26,6 +27,15 @@ class CommitKey:
     @property
     def n(self) -> int:
         return int(self.gens.shape[0])
+
+
+def make_key(label: bytes, n: int, device=None) -> CommitKey:
+    """n generators and a blinding generator derived from ``label`` on
+    ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    gens = group.derive_generators(b"zkdl/gens/" + label, n, dev)
+    h = group.derive_generators(b"zkdl/blind/" + label, 1, dev)[0]
+    return CommitKey(gens, h, label)
 
 
 def commit_many(rows) -> torch.Tensor:

@@ -14,9 +14,11 @@ the witness this module produces is exactly the set of tensors Protocol
 with the rescale/sign auxiliary decompositions of Section 4 (floor
 rescaling, remainders in [0, 2^R)).  Data and weights are drawn with
 numpy on the host (the reference's seeded streams) and moved to the
-device; the exact integer products run as int64 on the CPU and as
-float64 `torch.matmul` on the card, guarded by the bound that keeps
-every partial sum an exactly representable integer.
+device.  Every exact integer product runs through the qmatmul kernel's
+`qmatmul_i64` (four int8 digit products assembled in int64 on the
+operands' device; its plain version on the CPU).  An operand outside
+int16, such as the loss gradient Z' - Y or a residual sum A^{l-1} + A^j,
+is split exactly into two int16 parts first.
 """
 from __future__ import annotations
 
@@ -27,9 +29,9 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.kernels.qmatmul import qmatmul_i64
 
-#: float64 holds every integer of magnitude below 2^53 exactly
-F64_EXACT = 1 << 53
+I16_MIN, I16_MAX = -(1 << 15), (1 << 15) - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,21 +52,30 @@ def quantize(x: np.ndarray, cfg: QuantConfig) -> np.ndarray:
     return np.clip(v, -lim, lim - 1)
 
 
+def _int16_parts(x: torch.Tensor) -> List[torch.Tensor]:
+    """x -> int16 parts summing to x exactly: x itself when it fits,
+    else clamp(x) and the rest.  Raises when the rest does not fit
+    either (x outside [-2^16, 2^16 - 2])."""
+    head = x.clamp(I16_MIN, I16_MAX)
+    rest = x - head
+    if not bool(rest.any()):
+        return [head.to(torch.int16)]
+    if bool(((rest < I16_MIN) | (rest > I16_MAX)).any()):
+        raise OverflowError("exact_matmul: an operand needs more than two "
+                            "int16 parts")
+    return [head.to(torch.int16), rest.to(torch.int16)]
+
+
 def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact int64 matrix product.  CPU: int64 matmul.  CUDA: float64
-    matmul, valid while K * max|a| * max|b| < 2^53 (then every product
-    and partial sum is an integer float64 represents exactly, in any
-    summation order); raises when the bound fails."""
-    if a.device.type == "cpu":
-        return a @ b
-    k = a.shape[-1]
-    bound = k * int(a.abs().max()) * int(b.abs().max())
-    if bound >= F64_EXACT:
-        raise OverflowError(
-            f"exact_matmul: K * max|A| * max|B| = {bound} >= 2^53; the "
-            "float64 product would round")
-    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).round() \
-        .to(torch.int64)
+    """Exact int64 matrix product of int64 operands: every pair of their
+    int16 parts through `qmatmul_i64`, the partial products added in
+    int64."""
+    out = None
+    for pa in _int16_parts(a):
+        for pb in _int16_parts(b):
+            prod = qmatmul_i64(pa, pb)
+            out = prod if out is None else out + prod
+    return out
 
 
 def rescale(v: torch.Tensor, cfg: QuantConfig):

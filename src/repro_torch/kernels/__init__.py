@@ -3,13 +3,17 @@
 * ``modmul``          -- elementwise Montgomery multiply (replaces the
                          Pallas ``modmul_planes``); every on-card field
                          and group product of the port runs through it.
-* ``sumcheck_fold``   -- the sumcheck variable fold and the IPA halves
-                         fold (replace ``fold_planes`` and
-                         ``fold_halves_planes``).
+* ``sumcheck_fold``   -- the sumcheck variable fold, the IPA halves
+                         fold and the IPA generator fold (replace
+                         ``fold_planes``, ``fold_halves_planes`` and
+                         ``pow_mul_planes``).
 * ``validity_tables`` -- both zkReLU eq. (19) tables in one launch
                          (replaces ``validity_tables_planes``).
 * ``generators``      -- hash-to-group generator derivation, the port's
                          own kernel (the reference derives on the host).
+* ``qmatmul``         -- the exact int16 matmul as four int8 digit
+                         products (replaces ``qmatmul_digits``); every
+                         witness matmul on the card runs through it.
 
 Each directory holds the ``.cu`` source and an ``ops.py`` with the
 wrapper, its plain PyTorch version (used for CPU tensors, and as the
@@ -22,10 +26,13 @@ from __future__ import annotations
 def _wrappers() -> dict:
     from repro_torch.kernels.generators.ops import derive
     from repro_torch.kernels.modmul.ops import modmul
-    from repro_torch.kernels.sumcheck_fold.ops import fold, fold_halves
+    from repro_torch.kernels.qmatmul.ops import qmatmul_digits
+    from repro_torch.kernels.sumcheck_fold.ops import (fold, fold_halves,
+                                                       pow_mul_halves)
     from repro_torch.kernels.validity_tables.ops import build_tables
     return {"modmul": modmul, "fold": fold, "fold_halves": fold_halves,
-            "validity_tables": build_tables, "generators": derive}
+            "validity_tables": build_tables, "generators": derive,
+            "pow_mul": pow_mul_halves, "qmatmul": qmatmul_digits}
 
 
 def launch_counts() -> dict:

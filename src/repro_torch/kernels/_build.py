@@ -30,6 +30,7 @@ SOURCES = {
     "sumcheck_fold": "sumcheck_fold/sumcheck_fold.cu",
     "validity_tables": "validity_tables/validity_tables.cu",
     "generators": "generators/generators.cu",
+    "qmatmul": "qmatmul/qmatmul.cu",
 }
 HEADERS = ("mont64.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,6 +47,8 @@ SIGNATURES = {
     "zk_modmul_scalar": (_P, _U64, _P, _I64, _U64, _U64, _P),
     "zk_fold": (_P, _P, _I64, _I64, _U64, _U64, _U64, _P),
     "zk_fold_halves": (_P, _P, _P, _I64, _U64, _U64, _U64, _U64, _P),
+    "zk_pow_mul": (_P, _P, _P, _I64, _U64, _U64, _U64, _U64, _U64, _P),
+    "zk_qmatmul_digits": (_P,) * 8 + (_I64,) * 3 + (_P,),
     "zk_validity_tables": (_P,) * 10 + (_I64,) + (_U64,) * 6 + (_P,),
     "zk_derive_generators": (_P, _INT, _I64, _I64, _P, _U64, _U64, _U64,
                              _P),

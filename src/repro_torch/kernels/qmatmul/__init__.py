@@ -1,0 +1,3 @@
+from repro_torch.kernels.qmatmul.ops import (  # noqa: F401
+    digit_operands, qmatmul_digits, qmatmul_digits_plain, qmatmul_i64,
+    qmatmul_partials)

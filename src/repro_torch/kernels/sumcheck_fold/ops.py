@@ -1,15 +1,17 @@
 """Wrappers of the fold kernels (`sumcheck_fold.cu`) and their plain
-versions: the sumcheck variable fold and the IPA halves fold over FQ.
+versions: the sumcheck variable fold and the IPA halves fold over FQ,
+and the IPA generator fold lo^{e_lo} * hi^{e_hi} over FP.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise.  Scalars (r, c_lo, c_hi) are canonical Montgomery-form python
-ints, passed to the kernels by value.
+ints and exponents standard-form python ints below 2^61, passed to the
+kernels by value.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.field.modarith import FQ, add, mont_mul_plain, sub
+from repro_torch.field.modarith import FP, FQ, add, mont_mul_plain, sub
 from repro_torch.kernels import _build
 from repro_torch.kernels.modmul.ops import _check_cuda
 
@@ -76,5 +78,55 @@ def fold_halves(vec: torch.Tensor, c_lo: int, c_hi: int) -> torch.Tensor:
     return out
 
 
+def _pow_plain(x: torch.Tensor, e: int) -> torch.Tensor:
+    """x^e over FP by square-and-multiply on the plain multiply."""
+    if e == 1:
+        return x
+    res = torch.full_like(x, FP.one)
+    acc = x
+    for j in range(e.bit_length()):
+        if (e >> j) & 1:
+            res = mont_mul_plain(FP, res, acc)
+        if j + 1 < e.bit_length():
+            acc = mont_mul_plain(FP, acc, acc)
+    return res
+
+
+def _check_exponent(e) -> int:
+    e = int(e)
+    if not 0 <= e < (1 << 61):
+        raise ValueError(f"pow_mul: exponent {e} is not a standard-form "
+                         "61-bit value")
+    return e
+
+
+def pow_mul_plain(gens: torch.Tensor, e_lo: int, e_hi: int) -> torch.Tensor:
+    n2 = gens.shape[0] // 2
+    e_lo, e_hi = _check_exponent(e_lo), _check_exponent(e_hi)
+    return mont_mul_plain(FP, _pow_plain(gens[:n2], e_lo),
+                          _pow_plain(gens[n2:], e_hi))
+
+
+def pow_mul_halves(gens: torch.Tensor, e_lo: int, e_hi: int) -> torch.Tensor:
+    """The IPA generator fold: (n,) FP group elements and two standard-form
+    exponents -> (n/2,) gens[:n/2]^{e_lo} * gens[n/2:]^{e_hi}."""
+    n = gens.shape[0]
+    assert gens.dim() == 1 and n % 2 == 0, gens.shape
+    if gens.device.type == "cpu":
+        return pow_mul_plain(gens, e_lo, e_hi)
+    _check_cuda(gens, "pow_mul_halves")
+    e_lo, e_hi = _check_exponent(e_lo), _check_exponent(e_hi)
+    gens = gens.contiguous()
+    out = torch.empty(n // 2, dtype=torch.int64, device=gens.device)
+    err = _build.lib("sumcheck_fold").zk_pow_mul(
+        gens.data_ptr(), gens[n // 2:].data_ptr(), out.data_ptr(), n // 2,
+        e_lo, e_hi, FP.one, FP.modulus, FP.nprime64,
+        _build.stream_handle(gens.device))
+    _build.check(err, "pow_mul_halves")
+    pow_mul_halves.launches += 1
+    return out
+
+
 fold.launches = 0
 fold_halves.launches = 0
+pow_mul_halves.launches = 0

@@ -15,6 +15,7 @@ from repro_torch import kernels
 from repro_torch.field import FP, FQ, encode_int
 from repro_torch.kernels import generators as gk
 from repro_torch.kernels import modmul as mk
+from repro_torch.kernels import qmatmul as qk
 from repro_torch.kernels import sumcheck_fold as fk
 from repro_torch.kernels import validity_tables as vk
 
@@ -75,3 +76,32 @@ def test_generator_kernel_matches_hashlib(dev):
     for label in (b"zkdl/gens/agg", b"x" * gk.MAX_LABEL_BYTES):
         assert torch.equal(gk.derive(label, 3, 500, dev),
                            gk.derive_plain(label, 3, 500, dev))
+
+
+@pytest.mark.parametrize("e_lo,e_hi", [(1, 0x0BADC0FFEE12345),
+                                       ((1 << 61) - 1, 1 << 60),
+                                       (0, 987654321)])
+def test_pow_mul_kernel_matches_plain(dev, e_lo, e_hi):
+    gens = _field(FP, 2 * 1027, 7, dev)
+    before = kernels.launch_counts()["pow_mul"]
+    assert torch.equal(fk.pow_mul_halves(gens, e_lo, e_hi),
+                       fk.pow_mul_plain(gens, e_lo, e_hi))
+    assert kernels.launch_counts()["pow_mul"] == before + 1
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (100, 300, 50),
+                                   (128, 256, 192)])
+def test_qmatmul_kernel_matches_plain(dev, m, k, n):
+    """CUDA has no integer matmul: the plain version runs on CPU copies."""
+    rng = np.random.default_rng(m + k + n)
+    a = torch.as_tensor(rng.integers(-2 ** 15, 2 ** 15, (m, k))
+                        ).to(torch.int16)
+    b = torch.as_tensor(rng.integers(-2 ** 15, 2 ** 15, (k, n))
+                        ).to(torch.int16)
+    digits = qk.digit_operands(a.to(dev), b.to(dev))[:4]
+    got = qk.qmatmul_digits(*digits)
+    want = qk.qmatmul_digits_plain(*(d.cpu() for d in digits))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(qk.qmatmul_i64(a.to(dev), b.to(dev)).cpu(),
+                       qk.qmatmul_i64(a, b))
