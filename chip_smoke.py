@@ -6,8 +6,10 @@
 
 Phases, each printing one JSON line:
 
-1. device and build: the card, torch/CUDA/nvcc versions, and the time
-   to build every CUDA kernel from the sources in this checkout;
+1. device and build: the card, torch/CUDA/nvcc versions, the time to
+   build every CUDA kernel from the sources in this checkout, and what
+   ``cuobjdump -sass`` shows: qmatmul's integer tensor-core MMAs (and no
+   dp4a), and the integer operations of one Montgomery multiply;
 2. kernels: each kernel against its plain PyTorch version on the card,
    bit for bit, at main-path sizes (random inputs plus 0, 1 and m-1),
    with both times;
@@ -40,6 +42,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -56,7 +59,10 @@ GOLDEN_SHA256 = {
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12          # 64 INT32 lanes/SM: half the 67 T FP32 rate
 INT8_TC_OPS_PER_S = 1979e12        # int8 tensor cores, dense
-MODMUL_OPS = 30                    # 32-bit integer ops per 64-bit REDC multiply
+# 32-bit integer ops per 64-bit REDC multiply: the fewest over the
+# stored products' SASS slices in the modmul library (phase build, which
+# reports the count again), a multiply-add as 2, an add as 1, a move as 0
+MODMUL_OPS = 38
 SHA256_OPS = 3400                  # 32-bit integer ops per one-block hash
 # fcnn-zkdl-16l (src/repro/configs/fcnn_zkdl_16l.py): batch 128, 16
 # layers of width 4096; depth cut to 2 to fit the run's time and memory
@@ -88,6 +94,31 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: ``reps`` calls captured in a CUDA graph
+    and replayed, so host time between launches is not counted."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def bound_ms(n_bytes: float, n_ops: float,
              ops_per_s: float = INT32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -106,6 +137,132 @@ def nvidia_smi() -> str:
 # phases
 # ---------------------------------------------------------------------------
 
+_SASS_FUNC = re.compile(r"Function : (\S+)")
+_SASS_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+_SASS_REG = re.compile(r"U?R\d+(?:\.64)?|U?P\d+")
+_INT_OPS = {"IMAD", "IADD3", "ISETP", "SEL", "LOP3", "SHF", "MOV", "LEA",
+            "IMNMX", "PRMT", "IABS", "POPC", "FLO", "VIADD"}
+
+
+def _sass(name: str) -> dict:
+    """{function: [instruction, ...]} of a built kernel library, from
+    ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = _SASS_FUNC.search(line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+        elif cur is not None and _SASS_INSN.search(line):
+            cur.append(_SASS_INSN.search(line).group(1))
+    return funcs
+
+
+def _regs(op: str) -> set:
+    """Registers an operand names; R<n>.64 is the pair R<n>, R<n+1>."""
+    out = set()
+    for r in _SASS_REG.findall(op):
+        if r.endswith(".64"):
+            base, num = r[:-3].rstrip("0123456789"), int(r[:-3].lstrip("UR"))
+            out |= {f"{base}{num}", f"{base}{num + 1}"}
+        else:
+            out.add(r)
+    return out
+
+
+def _defs_uses(insn: str):
+    """(opcode, registers written, registers read, predicated)."""
+    guard = insn.startswith("@")
+    if guard:
+        g, insn = insn.split(None, 1)
+    opcode, _, rest = insn.partition(" ")
+    ops = [o.strip().replace(".reuse", "") for o in rest.split(",") if o]
+    uses = _regs(g[1:]) if guard else set()
+    defs = set()
+    if ops and not opcode.startswith(("ST", "BRA", "EXIT", "CALL", "BSYNC",
+                                      "BSSY", "BAR")):
+        wide = ".WIDE" in opcode or (opcode.startswith(("LD", "ULD"))
+                                     and ".64" in opcode)
+        first = ops.pop(0)
+        defs = _regs(first + (".64" if wide and ".64" not in first else ""))
+        while ops and re.fullmatch(r"U?P(\d+|T)", ops[0]):
+            defs.add(ops.pop(0))         # carry-out / compare predicates
+        if ".WIDE" in opcode and len(ops) >= 3 and \
+                re.fullmatch(r"R\d+", ops[2]):
+            ops[2] += ".64"              # the 64-bit addend
+    elif opcode.startswith("ST") and ".64" in opcode and len(ops) >= 2:
+        ops[1] += ".64"
+    for o in ops:
+        uses |= _regs(o)
+    return opcode, defs - {"RZ", "PT"}, uses - {"RZ", "PT"}, guard
+
+
+def _stored_value_slice(insns: list, idx: int) -> list:
+    """The instructions that compute the value stored by insns[idx]: its
+    backward data slice, stopped at loads."""
+    opcode, _, _, _ = _defs_uses(insns[idx])
+    value = insns[idx].partition(" ")[2].split(",")[1].strip()
+    needed = _regs(value + (".64" if ".64" in opcode else ""))
+    out = []
+    for insn in reversed(insns[:idx]):
+        if not needed:
+            break
+        op, defs, uses, guard = _defs_uses(insn)
+        if defs & needed:
+            out.append(insn)
+            if not guard:
+                needed -= defs
+            if not op.startswith(("LD", "ULD", "S2R", "S2UR")):
+                needed |= uses
+    return out[::-1]
+
+
+def _int_ops(insns: list) -> int:
+    """Integer operations of per-thread instructions, as the 33.5 T/s
+    INT32 peak counts them: a multiply-add (IMAD, IMAD.WIDE) as 2; an add
+    (IMAD.IADD, IMAD.X, IMAD.SHL, IADD3, ...) as 1; a move (MOV,
+    IMAD.MOV) as 0."""
+    n = 0
+    for insn in insns:
+        opcode = insn.split()[1] if insn.startswith("@") else insn.split()[0]
+        base, mods = opcode.split(".")[0], opcode.split(".")[1:]
+        if base == "MOV" or (base == "IMAD" and "MOV" in mods):
+            continue
+        if base == "IMAD":
+            n += 2 if "WIDE" in mods or not {"IADD", "X", "SHL"} & set(mods) \
+                else 1
+        elif base in _INT_OPS:
+            n += 1
+    return n
+
+
+def sass_report() -> dict:
+    """What the compiler made of two kernels: qmatmul's tensor-core MMA
+    instructions (and no dp4a), and the integer operations of one 64-bit
+    Montgomery multiply in modmul: the backward slice of each product a
+    kernel stores, and the fewest over them, which MODMUL_OPS restates."""
+    qm = [i for insns in _sass("qmatmul").values() for i in insns]
+    imma = [i for i in qm if i.split()[0].startswith("IMMA")]
+    mont = {}
+    for fn, insns in _sass("modmul").items():
+        slices = [_stored_value_slice(insns, k)
+                  for k, i in enumerate(insns) if i.startswith("STG")]
+        mont[fn] = {"ops_per_store": [_int_ops(s_) for s_ in slices],
+                    "slice": slices[-1] if slices else []}
+    return {"qmatmul": {"imma": len(imma), "imma_lines": sorted(set(
+                            i.split()[0] for i in imma)),
+                        "imma_sample": imma[:4],
+                        "idp": sum(i.split()[0].startswith("IDP")
+                                   for i in qm)},
+            "modmul": mont, "MODMUL_OPS": MODMUL_OPS,
+            "modmul_min_ops": min((n for f in mont.values()
+                                   for n in f["ops_per_store"]), default=None)}
+
+
 def phase_build(state) -> dict:
     import torch
     from repro_torch.kernels import _build
@@ -113,12 +270,15 @@ def phase_build(state) -> dict:
                           text=True, timeout=60).stdout.strip().splitlines()
     t0 = time.perf_counter()
     _build.build_all()
+    build_s = time.perf_counter() - t0
     regs = {name: [ln.strip() for ln in log.splitlines()
                    if "registers" in ln]
             for name, log in _build.build_log.items() if name != "seconds"}
+    sass = sass_report()
+    ok = sass["qmatmul"]["imma"] > 0 and sass["qmatmul"]["idp"] == 0
     return {"nvidia_smi": state["smi"], "torch": torch.__version__,
             "cuda": torch.version.cuda, "nvcc": nvcc[-1] if nvcc else "",
-            "build_s": time.perf_counter() - t0, "ptxas": regs}
+            "build_s": build_s, "ptxas": regs, "sass": sass, "_ok": ok}
 
 
 def _rand_field(spec, n, rng, device):
@@ -221,7 +381,8 @@ def phase_kernels(state) -> dict:
         "ms_n_plain": cuda_ms(lambda: gk.derive(b"zkdl/gens/agg", 0, ng,
                                                 dev)),
         "plain_ms": plain_s / 2 * 1e3, "plain_n": ng,
-        "bytes": 8 * n_main, "ops": SHA256_OPS * n_main}
+        # one SHA-256 block and six Montgomery multiplies per generator
+        "bytes": 8 * n_main, "ops": (SHA256_OPS + 6 * MODMUL_OPS) * n_main}
     res["pow_mul"] = _bench_pow_mul(rng, dev)
     res["qmatmul"] = _bench_qmatmul(rng, dev)
     for name, r_ in res.items():
@@ -263,58 +424,107 @@ def _bench_pow_mul(rng, dev) -> dict:
             "bytes": 24 * n_main, "ops": MODMUL_OPS * mm * n_main}
 
 
+def _int16(rng, shape, edges: bool = True):
+    import torch
+    x = torch.as_tensor(rng.integers(-2 ** 15, 2 ** 15, shape),
+                        dtype=torch.int16)
+    if edges:
+        x.view(-1)[:2] = torch.tensor([-2 ** 15, 2 ** 15 - 1])
+    return x
+
+
+#: the witness's exact products at the full width, with the operand
+#: layouts it passes (core/quantfc.py): name -> ((M, K, N), A a .T view,
+#: B a .T view)
+QMATMUL_SHAPES = {"Z": ((FULL_BATCH, 4096, 4096), False, False),
+                  "G_X": ((FULL_BATCH, 4096, 4096), False, True),
+                  "G_W": ((4096, FULL_BATCH, 4096), True, False)}
+
+
+def _views(a, b, a_t: bool, b_t: bool, dev):
+    """a, b on ``dev``, each as the .T view of a contiguous transpose
+    where asked."""
+    a, b = a.to(dev), b.to(dev)
+    return (a.T.contiguous().T if a_t else a,
+            b.T.contiguous().T if b_t else b)
+
+
+def time_qmatmul(qmatmul_i64, a, b, reps: int = 20) -> dict:
+    """One whole ``qmatmul_i64(a, b)`` on the card: its device time
+    (calls replayed from a CUDA graph) and its time per back-to-back call
+    from Python, beside the bound (bytes 2MK + 2KN + 8MN, operations
+    4 x 2MNK int8) and the library yardstick, four torch._int_mm calls on
+    the reference's int8 digit matrices, which the port never makes."""
+    import torch
+
+    def digits(x):
+        x = x.to(torch.int32)
+        return ((x >> 8).to(torch.int8).contiguous(),
+                ((x & 0xFF) - 128).to(torch.int8).contiguous())
+    (m, k), n = a.shape, b.shape[1]
+    (a_hi, a_c), (b_hi, b_c) = digits(a), digits(b)
+    pairs = [(a_hi, b_hi), (a_hi, b_c), (a_c, b_hi), (a_c, b_c)]
+    n_bytes, n_ops = 2 * m * k + 2 * k * n + 8 * m * n, 4 * 2 * m * n * k
+    b_ms, b_by = bound_ms(n_bytes, n_ops, INT8_TC_OPS_PER_S)
+    ms = graph_ms(lambda: qmatmul_i64(a, b), reps)
+    return {"shape": [m, k, n], "a_strides": list(a.stride()),
+            "b_strides": list(b.stride()), "ms": ms,
+            "host_loop_ms": cuda_ms(lambda: qmatmul_i64(a, b), reps),
+            "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+            "library_ms": cuda_ms(lambda: [torch._int_mm(x, y)
+                                           for x, y in pairs], reps),
+            "bytes": n_bytes, "ops": n_ops}
+
+
 def _bench_qmatmul(rng, dev) -> dict:
-    """qmatmul at the witness shapes (Z = A W: 128 x 4096 x 4096; G_W =
-    G_Z^T A: 4096 x 128 x 4096) and a ragged one, bit for bit against
-    the plain version on CPU copies (CUDA has no integer matmul); the
-    library yardstick is four torch._int_mm calls, which the port never
-    makes."""
+    """qmatmul_i64, the fused kernel, bit for bit against its plain
+    version on CPU copies (CUDA has no integer matmul) at the witness
+    shapes with the witness's operand layouts (QMATMUL_SHAPES) and at the
+    edges: a ragged shape, K = 1, K off the 64-entry K tile, int16
+    extremes in both operands, and the largest accepted K at M = N = 1.
+    Timed at the witness shapes by `time_qmatmul`."""
     import torch
     from repro_torch.kernels import qmatmul as qk
 
-    shapes = [(FULL_BATCH, 4096, 4096), (4096, FULL_BATCH, 4096),
-              (1000, 777, 333)]
-    errs, out = [], {}
-    for m, k, n in shapes:
-        a = torch.as_tensor(rng.integers(-2 ** 15, 2 ** 15, (m, k)),
-                            dtype=torch.int16)
-        b = torch.as_tensor(rng.integers(-2 ** 15, 2 ** 15, (k, n)),
-                            dtype=torch.int16)
-        a.view(-1)[:2] = torch.tensor([-2 ** 15, 2 ** 15 - 1])
-        b.view(-1)[:2] = torch.tensor([2 ** 15 - 1, -2 ** 15])
-        digits = qk.digit_operands(a.to(dev), b.to(dev))[:4]
-        got = qk.qmatmul_digits(*digits)
-        cpu_digits = [d.cpu() for d in digits]
+    errs, shapes, edges = [], {}, {}
+    for name, ((m, k, n), a_t, b_t) in QMATMUL_SHAPES.items():
+        a, b = _int16(rng, (m, k)), _int16(rng, (k, n))
+        da, db = _views(a, b, a_t, b_t, dev)
+        got = qk.qmatmul_i64(da, db)
         t0 = time.perf_counter()
-        want = qk.qmatmul_digits_plain(*cpu_digits)
+        want = qk.qmatmul_i64(a, b)
         plain_ms = (time.perf_counter() - t0) * 1e3
-        errs += [_max_err(g.cpu().long(), w.long()) for g, w in zip(got, want)]
-        errs.append(_max_err(qk.qmatmul_i64(a.to(dev), b.to(dev)).cpu(),
-                             qk.qmatmul_i64(a, b)))
-        # torch._int_mm takes M > 16 and K, N multiples of 8
-        pairs, lib = None, None
-        if m > 16 and n % 8 == 0:
-            a_hi, a_c, bt_hi, bt_c = digits
-            b_hi, b_c = bt_hi.T.contiguous(), bt_c.T.contiguous()
-            pairs = [(a_hi, b_hi), (a_hi, b_c), (a_c, b_hi), (a_c, b_c)]
-            lib = [torch._int_mm(x, y) for x, y in pairs]
-        out[f"{m}x{k}x{n}"] = {
-            "ms": cuda_ms(lambda: qk.qmatmul_digits(*digits)),
-            "plain_ms_cpu": plain_ms,
-            "library_ms": cuda_ms(lambda: [torch._int_mm(x, y)
-                                           for x, y in pairs])
-            if lib is not None else None,
-            "library_equal": lib is not None and all(
-                torch.equal(l_, g) for l_, g in zip(lib, got)),
-            "bytes": 2 * m * k + 2 * k * n + 16 * m * n,
-            "ops": 4 * 2 * m * n * k}
-        del digits, got, want, lib, pairs
-    main = out[f"{FULL_BATCH}x4096x4096"]
+        errs.append(_max_err(got.cpu(), want))
+        del got, want
+        shapes[name] = dict(time_qmatmul(qk.qmatmul_i64, da, db),
+                            plain_ms_cpu=plain_ms)
+        del da, db
+    k_max = qk.K_MAX
+    for name, (m, k, n), fill in [
+            ("ragged", (1000, 777, 333), None), ("k1", (37, 1, 45), None),
+            ("k_off_tile", (130, 100, 72), None),
+            ("min_x_min", (65, 200, 67), (-2 ** 15, -2 ** 15)),
+            ("min_x_max", (65, 200, 67), (-2 ** 15, 2 ** 15 - 1)),
+            ("k_max", (1, k_max, 1), None),
+            ("k_max_min_x_min", (1, k_max, 1), (-2 ** 15, -2 ** 15))]:
+        if fill is None:
+            a, b = _int16(rng, (m, k)), _int16(rng, (k, n))
+        else:
+            a = torch.full((m, k), fill[0], dtype=torch.int16)
+            b = torch.full((k, n), fill[1], dtype=torch.int16)
+        want = qk.qmatmul_i64(a, b)
+        err = max(_max_err(qk.qmatmul_i64(*_views(a, b, a_t, b_t, dev))
+                           .cpu(), want)
+                  for a_t in (False, True) for b_t in (False, True))
+        edges[name] = {"shape": [m, k, n], "max_abs_err": err}
+        errs.append(err)
+    main = shapes["Z"]
     return {"n": f"{FULL_BATCH}x4096x4096", "max_abs_err": max(errs),
             "ms": main["ms"], "plain_ms": main["plain_ms_cpu"],
             "plain_device": "cpu", "library_ms": main["library_ms"],
             "bytes": main["bytes"], "ops": main["ops"],
-            "ops_per_s": INT8_TC_OPS_PER_S, "shapes": out}
+            "ops_per_s": INT8_TC_OPS_PER_S, "shapes": shapes,
+            "edges": edges}
 
 
 def phase_golden(state) -> dict:

@@ -11,9 +11,10 @@
                          (replaces ``validity_tables_planes``).
 * ``generators``      -- hash-to-group generator derivation, the port's
                          own kernel (the reference derives on the host).
-* ``qmatmul``         -- the exact int16 matmul as four int8 digit
-                         products (replaces ``qmatmul_digits``); every
-                         witness matmul on the card runs through it.
+* ``qmatmul``         -- the exact int16 x int16 -> int64 matmul in one
+                         launch on the int8 tensor cores (replaces
+                         ``qmatmul_digits`` and its wrapper's assembly);
+                         every witness matmul on the card runs through it.
 
 Each directory holds the ``.cu`` source and an ``ops.py`` with the
 wrapper, its plain PyTorch version (used for CPU tensors, and as the
@@ -26,13 +27,13 @@ from __future__ import annotations
 def _wrappers() -> dict:
     from repro_torch.kernels.generators.ops import derive
     from repro_torch.kernels.modmul.ops import modmul
-    from repro_torch.kernels.qmatmul.ops import qmatmul_digits
+    from repro_torch.kernels.qmatmul.ops import qmatmul_i64
     from repro_torch.kernels.sumcheck_fold.ops import (fold, fold_halves,
                                                        pow_mul_halves)
     from repro_torch.kernels.validity_tables.ops import build_tables
     return {"modmul": modmul, "fold": fold, "fold_halves": fold_halves,
             "validity_tables": build_tables, "generators": derive,
-            "pow_mul": pow_mul_halves, "qmatmul": qmatmul_digits}
+            "pow_mul": pow_mul_halves, "qmatmul": qmatmul_i64}
 
 
 def launch_counts() -> dict:

@@ -48,7 +48,8 @@ SIGNATURES = {
     "zk_fold": (_P, _P, _I64, _I64, _U64, _U64, _U64, _P),
     "zk_fold_halves": (_P, _P, _P, _I64, _U64, _U64, _U64, _U64, _P),
     "zk_pow_mul": (_P, _P, _P, _I64, _U64, _U64, _U64, _U64, _U64, _P),
-    "zk_qmatmul_digits": (_P,) * 8 + (_I64,) * 3 + (_P,),
+    "zk_qmatmul_i64": (_P, _I64, _INT, _P, _I64, _INT, _P, _I64, _I64, _I64,
+                       _P),
     "zk_validity_tables": (_P,) * 10 + (_I64,) + (_U64,) * 6 + (_P,),
     "zk_derive_generators": (_P, _INT, _I64, _I64, _P, _U64, _U64, _U64,
                              _P),

@@ -9,7 +9,8 @@
 // the prover runs without materialising a broadcast.
 //
 // Bound on the card: 24 bytes per element (two reads, one write) against
-// ~30 32-bit integer operations; at 3.35 TB/s the memory side dominates,
+// 38 32-bit integer operations (counted in the compiled SASS, a
+// multiply-add as 2); at 3.35 TB/s the memory side dominates,
 // so the design keeps one pass, coalesced 8-byte accesses, and no
 // shared memory.
 #include "mont64.cuh"

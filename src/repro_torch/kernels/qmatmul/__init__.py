@@ -1,3 +1,3 @@
 from repro_torch.kernels.qmatmul.ops import (  # noqa: F401
-    digit_operands, qmatmul_digits, qmatmul_digits_plain, qmatmul_i64,
-    qmatmul_partials)
+    K_MAX, digit_operands, qmatmul_digits, qmatmul_digits_plain, qmatmul_i64,
+    qmatmul_i64_plain, qmatmul_partials)

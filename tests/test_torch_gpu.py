@@ -89,19 +89,46 @@ def test_pow_mul_kernel_matches_plain(dev, e_lo, e_hi):
     assert kernels.launch_counts()["pow_mul"] == before + 1
 
 
+def _int16_pair(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-2 ** 15, 2 ** 15, (m, k))
+    b = rng.integers(-2 ** 15, 2 ** 15, (k, n))
+    a.flat[:2] = [-2 ** 15, 2 ** 15 - 1]         # the int16 edges
+    b.flat[:2] = [2 ** 15 - 1, -2 ** 15]
+    return (torch.as_tensor(a).to(torch.int16),
+            torch.as_tensor(b).to(torch.int16))
+
+
+def _on_card(x, dev, transposed):
+    """x on the card, row-major or as the .T view of a row-major tensor."""
+    x = x.to(dev)
+    return x.T.contiguous().T if transposed else x
+
+
+@pytest.mark.parametrize("layout", ["rows", "a_T", "b_T", "both_T"])
 @pytest.mark.parametrize("m,k,n", [(1, 1, 1), (100, 300, 50),
-                                   (128, 256, 192)])
-def test_qmatmul_kernel_matches_plain(dev, m, k, n):
-    """CUDA has no integer matmul: the plain version runs on CPU copies."""
-    rng = np.random.default_rng(m + k + n)
-    a = torch.as_tensor(rng.integers(-2 ** 15, 2 ** 15, (m, k))
-                        ).to(torch.int16)
-    b = torch.as_tensor(rng.integers(-2 ** 15, 2 ** 15, (k, n))
-                        ).to(torch.int16)
-    digits = qk.digit_operands(a.to(dev), b.to(dev))[:4]
-    got = qk.qmatmul_digits(*digits)
-    want = qk.qmatmul_digits_plain(*(d.cpu() for d in digits))
-    for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
-    assert torch.equal(qk.qmatmul_i64(a.to(dev), b.to(dev)).cpu(),
-                       qk.qmatmul_i64(a, b))
+                                   (128, 256, 192), (70, 1, 66),
+                                   (2, qk.K_MAX, 3)])
+def test_qmatmul_kernel_matches_plain(dev, m, k, n, layout):
+    """The fused kernel against the plain version on CPU copies (CUDA
+    has no integer matmul): ragged edges, K = 1, K off the K tile and the
+    largest accepted K, with operands as row-major tensors or .T views;
+    one launch per qmatmul_i64."""
+    a, b = _int16_pair(m, k, n, m + k + n)
+    da = _on_card(a, dev, layout in ("a_T", "both_T"))
+    db = _on_card(b, dev, layout in ("b_T", "both_T"))
+    before = kernels.launch_counts()["qmatmul"]
+    got = qk.qmatmul_i64(da, db)
+    assert kernels.launch_counts()["qmatmul"] == before + 1
+    assert torch.equal(got.cpu(), qk.qmatmul_i64(a, b))
+
+
+@pytest.mark.parametrize("fill", [-2 ** 15, 2 ** 15 - 1])
+def test_qmatmul_kernel_exact_at_int16_extremes(dev, fill):
+    """Every entry at an int16 extreme, up to the largest accepted K,
+    where one int32 digit product reaches 2^31."""
+    for m, k, n in [(65, 200, 67), (1, qk.K_MAX, 1)]:
+        a = torch.full((m, k), -2 ** 15, dtype=torch.int16)
+        b = torch.full((k, n), fill, dtype=torch.int16)
+        want = torch.full((m, n), -2 ** 15 * fill * k, dtype=torch.int64)
+        assert torch.equal(qk.qmatmul_i64(a.to(dev), b.to(dev)).cpu(), want)

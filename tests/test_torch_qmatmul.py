@@ -2,10 +2,11 @@
 witness products built on it (`quantfc.exact_matmul`) against the
 reference.
 
-On the CPU `qmatmul_digits` runs its plain version; the digit split,
-K padding, row / column sums and int64 assembly around it are the same
-code the card runs.  Every comparison is exact (tolerance 0).  The CUDA
-kernel itself is held against the plain version in tests/test_torch_gpu.py
+On the CPU `qmatmul_i64` runs its plain version: the reference's digit
+split, K padding, digit products, row / column sums and assembly, kept in
+int64.  The operand checks and the reading of ``.T`` views are the same
+code the card runs.  Every comparison is exact (tolerance 0).  The fused
+CUDA kernel is held against the plain version in tests/test_torch_gpu.py
 (marker ``gpu``) and in `chip_smoke.py`."""
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ from repro.kernels.qmatmul import qmatmul_partials as r_partials
 from repro.kernels.qmatmul.ref import qmatmul_ref
 
 from repro_torch.core.quantfc import exact_matmul
-from repro_torch.kernels.qmatmul import qmatmul_i64, qmatmul_partials
+from repro_torch.kernels.qmatmul import K_MAX, qmatmul_i64, qmatmul_partials
 
 LIM = 1 << 15
 
@@ -35,6 +36,42 @@ def test_qmatmul_i64_matches_reference_oracle(m, k, n):
                       torch.as_tensor(b).to(torch.int16))
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), qmatmul_ref(a, b))
+
+
+@pytest.mark.parametrize("layout", ["a_T", "b_T", "both_T"])
+def test_qmatmul_i64_reads_transposed_views(layout):
+    """The witness passes W^T and G_Z^T as views; the wrapper reads them
+    as they lie."""
+    m, k, n = 9, 70, 12
+    rng = np.random.default_rng(len(layout))
+    a, b = _int16(rng, (m, k)), _int16(rng, (k, n))
+    ta = torch.as_tensor(a).to(torch.int16)
+    tb = torch.as_tensor(b).to(torch.int16)
+    if layout in ("a_T", "both_T"):
+        ta = ta.T.contiguous().T
+    if layout in ("b_T", "both_T"):
+        tb = tb.T.contiguous().T
+    assert not (ta.is_contiguous() and tb.is_contiguous())
+    np.testing.assert_array_equal(qmatmul_i64(ta, tb).numpy(),
+                                  qmatmul_ref(a, b))
+
+
+@pytest.mark.parametrize("fill", [0, -LIM])
+def test_qmatmul_i64_exact_at_k_max(fill):
+    """K = 2^17 is accepted; there the reference's int32 digit sums
+    overflow ((-128)(-128) 2^17 = 2^31), and a zero product came out as
+    -4294967296."""
+    a = np.full((1, K_MAX), fill, dtype=np.int64)
+    b = np.full((K_MAX, 1), fill, dtype=np.int64)
+    got = qmatmul_i64(torch.as_tensor(a).to(torch.int16),
+                      torch.as_tensor(b).to(torch.int16))
+    np.testing.assert_array_equal(got.numpy(), a @ b)
+
+
+def test_qmatmul_i64_rejects_k_past_k_max():
+    a = torch.zeros((1, K_MAX + 1), dtype=torch.int16)
+    with pytest.raises(ValueError):
+        qmatmul_i64(a, a.T)
 
 
 def test_qmatmul_partials_match_reference_kernel():
