@@ -28,7 +28,19 @@ Phases, each printing one JSON line:
    window at width 1024 (aggregation across two on-card SGD steps), all
    with 2/sqrt(width) weights and an SGD step of 2^-16;
 6. open: the open IPA (`open_prove` / `open_verify`) at n = 2^20, and a
-   wrong claim rejected.
+   wrong claim rejected;
+7. audit: the soundness audit (`repro_torch.audit`) on the card.  (a)
+   `run_audit` at the recorded reference report's configuration
+   (`AUDIT_report.json`: widths (4, 4, 4), batch 2, T = 8,
+   QuantConfig(16, 4), seed 11) must equal that report in every field
+   but the timings; (b) at the full width (phase 4's geometry and
+   witness recipe), all 14 attacks rejected, the membership audit
+   verified in-process and by a fresh verifier process, and SC-BD on
+   the first AUDIT_SCBD_D entries of the window's stacked gap verified
+   with a forged claim rejected.
+
+Phase 1 also starts a fresh interpreter that calls one kernel: it must
+report no compile (`repro_torch.core.execache.stats()`).
 
 Then a JSON line with every kernel's numbers, the nvidia-smi name and
 power limit, and as the last line
@@ -74,6 +86,10 @@ AGG_WIDTH, AGG_STEPS = 1024, 2
 # weights so far that the second step's Z' leaves the 16-bit range
 TRAIN_LR_SHIFT = 16
 OPEN_N = 1 << 20
+# SC-BD's three D^2 Q wiring tables at the full width: D = 2^12, Q = 16
+# is 2^28 words (2 GiB) each and 38.7 GB above the baseline at the first
+# round's peak on an H100 80GB, the largest power of two under half of it
+AUDIT_SCBD_D = 1 << 12
 
 
 def emit(obj) -> None:
@@ -275,10 +291,37 @@ def phase_build(state) -> dict:
                    if "registers" in ln]
             for name, log in _build.build_log.items() if name != "seconds"}
     sass = sass_report()
-    ok = sass["qmatmul"]["imma"] > 0 and sass["qmatmul"]["idp"] == 0
+    fresh = _fresh_process_stats()
+    ok = (sass["qmatmul"]["imma"] > 0 and sass["qmatmul"]["idp"] == 0
+          and fresh["misses"] == 0 and fresh["disk_writes"] == 0)
     return {"nvidia_smi": state["smi"], "torch": torch.__version__,
             "cuda": torch.version.cuda, "nvcc": nvcc[-1] if nvcc else "",
-            "build_s": build_s, "ptxas": regs, "sass": sass, "_ok": ok}
+            "build_s": build_s, "ptxas": regs, "sass": sass,
+            "fresh_process_exec_stats": fresh, "_ok": ok}
+
+
+_FRESH_CHILD = """
+import json, torch
+from repro_torch.core import execache
+from repro_torch.field import FQ
+from repro_torch.kernels import modmul as mk
+a = torch.arange(1, 9, device="cuda")
+mk.modmul(FQ, a, a)
+torch.cuda.synchronize()
+print(json.dumps(dict(execache.stats(), launches=mk.modmul.launches)))
+"""
+
+
+def _fresh_process_stats() -> dict:
+    """execache.stats() of a fresh interpreter that calls one kernel
+    after this process built them all: it must compile nothing."""
+    from repro_torch.audit.report import _child_env
+    res = subprocess.run([sys.executable, "-c", _FRESH_CHILD],
+                         env=_child_env(), capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"fresh process failed: {res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
 
 
 def _rand_field(spec, n, rng, device):
@@ -588,11 +631,26 @@ def _prove_again(pk, wit, profile: bool):
                        "top_kernels": top}
 
 
+def _full_witness(width: int, seed: int, qc, dev):
+    """One step witness at the full width and depth FULL_LAYERS: random
+    weights and data from ``seed``, the weights scaled by 1/sqrt(fan-in)
+    so every rescaled activation and gradient stays inside the 16-bit
+    range (the reference's fixed 0.3 scale overflows Z' at width 4096)."""
+    import numpy as np
+    from repro_torch.core.quantfc import quantize, train_step_witness
+
+    rng = np.random.default_rng(seed)
+    ws = [quantize(rng.uniform(-1, 1, (width, width)) * (2 / width ** 0.5),
+                   qc) for _ in range(FULL_LAYERS)]
+    x = quantize(rng.uniform(-1, 1, (FULL_BATCH, width)), qc)
+    y = quantize(rng.uniform(-1, 1, (FULL_BATCH, width)), qc)
+    return train_step_witness(x, y, ws, qc, device=dev)
+
+
 def phase_full(state, width: int, profile: bool = False) -> dict:
     import numpy as np
     import torch
-    from repro_torch.core.quantfc import (QuantConfig, quantize,
-                                          train_step_witness)
+    from repro_torch.core.quantfc import QuantConfig
     from repro_torch.core.pipeline import (GraphBuilder, ProofSession,
                                            compile, encode_proof,
                                            verify_bytes)
@@ -611,16 +669,8 @@ def phase_full(state, width: int, profile: bool = False) -> dict:
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
 
-    # random weights from a seed, scaled by 1/sqrt(fan-in) so every
-    # rescaled activation and gradient stays inside the 16-bit range
-    # (the reference's fixed 0.3 scale overflows Z' at width 4096)
     t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    ws = [quantize(rng.uniform(-1, 1, (width, width)) * (2 / width ** 0.5),
-                   qc) for _ in range(layers)]
-    x = quantize(rng.uniform(-1, 1, (batch, width)), qc)
-    y = quantize(rng.uniform(-1, 1, (batch, width)), qc)
-    wit = train_step_witness(x, y, ws, qc, device=dev)
+    wit = _full_witness(width, 0, qc, dev)
     torch.cuda.synchronize()
     t_wit = time.perf_counter() - t0
 
@@ -816,6 +866,168 @@ def phase_open(state) -> dict:
             "wrong_claim_rejected": rejected, "_ok": accepted and rejected}
 
 
+def _strip_timing(obj):
+    """A report without its wall-clock fields: ``timings`` and every
+    ``seconds``."""
+    if isinstance(obj, dict):
+        return {k: _strip_timing(v) for k, v in obj.items()
+                if k not in ("timings", "seconds")}
+    if isinstance(obj, list):
+        return [_strip_timing(v) for v in obj]
+    return obj
+
+
+def _diff_paths(got, want, path: str = "") -> list:
+    """The paths at which two JSON values differ."""
+    if isinstance(got, dict) and isinstance(want, dict):
+        return [p for k in sorted(set(got) | set(want))
+                for p in _diff_paths(got.get(k), want.get(k),
+                                     f"{path}/{k}")]
+    if isinstance(got, list) and isinstance(want, list) and \
+            len(got) == len(want):
+        return [p for i, (g, w) in enumerate(zip(got, want))
+                for p in _diff_paths(g, w, f"{path}/{i}")]
+    return [] if got == want else [path or "/"]
+
+
+def _audit_recorded(work: str, dev) -> dict:
+    """(a): `run_audit` at the recorded reference report's configuration,
+    equal to `AUDIT_report.json` in every field but the timings."""
+    from repro_torch.audit.report import run_audit
+
+    with open(os.path.join(ROOT, "AUDIT_report.json")) as f:
+        recorded = json.load(f)
+    cfg = recorded["config"]
+    report = run_audit(smoke=cfg["smoke"], widths=tuple(cfg["widths"]),
+                       batch=cfg["batch"], n_steps=cfg["n_steps"],
+                       q_bits=cfg["q_bits"], r_bits=cfg["r_bits"],
+                       seed=cfg["seed"], label=cfg["label"].encode(),
+                       work_dir=os.path.join(work, "recorded"),
+                       fresh_process=True, device=dev)
+    with open(os.path.join(OUT_DIR, "AUDIT_report.json"), "w") as f:
+        json.dump(report, f, indent=2)
+    diffs = _diff_paths(_strip_timing(report), _strip_timing(recorded))
+    return {"config": cfg, "timings": report["timings"],
+            "attack_s": {o["name"]: o["seconds"] for o in report["attacks"]},
+            "membership_s": report["membership"]["seconds"],
+            "scbd_s": report["scbd"]["seconds"],
+            "summary": report["summary"], "differs_from_recorded": diffs,
+            "_ok": bool(report["ok"]) and not diffs}
+
+
+class _Counted:
+    """Counts the calls of one module attribute while installed."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, 0
+        self.orig = getattr(module, name)
+
+    def __enter__(self):
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.orig(*args, **kwargs)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _audit_full(width: int, work: str, dev, scbd_d: int) -> dict:
+    """(b): the battery, the membership audit and SC-BD at the full
+    width, on an AttackContext built from its fields: phase 4's witness
+    recipe (the reference's synthetic stream overflows G_A' at batch
+    128), the train phase's SGD step, and a second honest window from a
+    second seed."""
+    import numpy as np
+    import torch
+    from repro_torch.audit import attacks
+    from repro_torch.audit import report as audit_report
+    from repro_torch.core.pipeline import (build_fcnn_graph, compile,
+                                           encode_proof, prove_session,
+                                           verify_bytes)
+    from repro_torch.core.quantfc import QuantConfig
+
+    qc, seed, label = QuantConfig(), 0, b"zkdl"             # (16, 8)
+    widths = (width,) * (FULL_LAYERS + 1)
+    t0 = time.perf_counter()
+    pk, vk = compile(build_fcnn_graph(widths, batch=FULL_BATCH), qc,
+                     n_steps=1, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    wit = _full_witness(width, seed, qc, dev)
+    t0 = time.perf_counter()
+    raw = encode_proof(prove_session(pk, [wit], np.random.default_rng(seed),
+                                     label=label))
+    prove_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    honest = verify_bytes(vk, raw, label=label)
+    verify_s = time.perf_counter() - t0
+    ctx = attacks.AttackContext(
+        pk=pk, vk=vk, quant=qc, wits=[wit], widths=widths, batch=FULL_BATCH,
+        n_steps=1, label=label, seed=seed, lr_shift=TRAIN_LR_SHIFT,
+        proof_bytes=raw, compile_seconds=setup_s, prove_seconds=prove_s)
+    wits2 = [_full_witness(width, seed + 1, qc, dev)]
+    raw2 = ctx.reprove(wits2, 999)
+    honest2 = verify_bytes(vk, raw2, label=label)
+    ctx._second = (wits2, raw2)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _Counted(attacks, "prove_session") as proves, \
+            _Counted(attacks, "verify_bytes") as verifies:
+        battery = attacks.run_battery(ctx)
+    battery_s = time.perf_counter() - t0
+    peak_battery = torch.cuda.max_memory_allocated()
+    membership = audit_report._membership_section(
+        ctx, os.path.join(work, "full"), True)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    scbd = audit_report._scbd_section(ctx, max_d=scbd_d)
+    scbd_peak = torch.cuda.max_memory_allocated() - base
+
+    control = {o.name: o for o in battery}["cross_window_replay"].variants[1]
+    ok = (honest and honest2 and len(battery) == 14
+          and all(o.rejected for o in battery)
+          and control.rejected and control.trace == ""
+          and membership["ok"] and membership["n_members"] == 5
+          and membership["n_window_members"] == 3
+          and membership["n_non_members"] == 3
+          and membership["cross_process"]["ran"]
+          and membership["cross_process"]["ok"]
+          and scbd["ok"] and scbd["tamper_rejected"] and scbd["d"] == scbd_d)
+    return {"width": width, "batch": FULL_BATCH, "layers": FULL_LAYERS,
+            "quant": [qc.q_bits, qc.r_bits], "n_steps": 1,
+            "lr_shift": TRAIN_LR_SHIFT,
+            "reduced": {"layers": [16, FULL_LAYERS],
+                        "scbd_d": [pk.cfg.d_stack, scbd_d]},
+            "setup_s": setup_s, "prove_s": prove_s, "verify_s": verify_s,
+            "battery_s": battery_s, "proves_in_battery": proves.calls,
+            "verifies_in_battery": verifies.calls,
+            "attacks": [o.as_dict() for o in battery],
+            "membership": membership, "scbd": dict(scbd, peak_bytes=scbd_peak),
+            "max_memory_allocated_battery": peak_battery, "_ok": ok}
+
+
+def phase_audit(state, width: int) -> dict:
+    import torch
+    from repro_torch import kernels
+
+    work = os.path.join(OUT_DIR, "audit")
+    dev = torch.device("cuda")
+    kernels.reset_launch_counts()
+    recorded = _audit_recorded(work, dev)
+    launches_recorded = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    full = _audit_full(width, work, dev, AUDIT_SCBD_D)
+    launches_full = kernels.launch_counts()
+    state["launches_audit"] = {k: launches_recorded[k] + launches_full[k]
+                               for k in launches_full}
+    ok = recorded.pop("_ok") and full.pop("_ok")
+    return {"recorded": dict(recorded, launches=launches_recorded),
+            "full": dict(full, launches=launches_full), "_ok": ok}
+
+
 KERNEL_META = {
     "modmul": ("src/repro_torch/kernels/modmul/modmul.cu",
                "src/repro/kernels/modmul/kernel.py:50"),
@@ -846,6 +1058,8 @@ def kernel_line(state) -> dict:
                      "launches": state.get("launches", {}).get(name, 0),
                      "launches_train": state.get("launches_train",
                                                  {}).get(name, 0),
+                     "launches_audit": state.get("launches_audit",
+                                                 {}).get(name, 0),
                      "max_abs_err": kb["max_abs_err"], "ms": kb["ms"],
                      "plain_ms": kb["plain_ms"], "bound_ms": b_ms,
                      "bound_by": b_by,
@@ -857,7 +1071,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--width", type=int, default=4096)
     ap.add_argument("--phases",
-                    default="build,kernels,golden,full,train,open")
+                    default="build,kernels,golden,full,train,open,audit")
     ap.add_argument("--profile", action="store_true",
                     help="trace the second full-width prove with "
                          "torch.profiler")
@@ -886,6 +1100,7 @@ def main(argv=None) -> int:
         "full": lambda: phase_full(state, args.width, args.profile),
         "train": lambda: phase_train(state, args.width),
         "open": lambda: phase_open(state),
+        "audit": lambda: phase_audit(state, args.width),
     }
     failed, record = [], {}
     for name in phases:

@@ -50,15 +50,19 @@ class ProvingKey:
     def device(self):
         return self.keys.device
 
-    def warm(self, seed: int = 0) -> None:
+    def warm(self, seed: int = 0) -> dict:
         """Prove and verify one throwaway synthetic window, so the first
-        real prove pays no kernel build or first-launch cost."""
+        real prove pays no kernel build or first-launch cost.  Returns
+        the kernel build-cache stats delta (`repro_torch.core.execache`):
+        a process that found every library on disk reports no misses."""
         import numpy as np
 
+        from repro_torch.core import execache
         from repro_torch.core.quantfc import synthetic_sgd_trajectory_widths
         from repro_torch.core.pipeline.graph import graph_skips, graph_widths
         from repro_torch.core.pipeline.session import ProofSession
 
+        before = execache.stats()
         cfg = self.cfg
         quant = QuantConfig(q_bits=cfg.q_bits, r_bits=cfg.r_bits)
         wits = synthetic_sgd_trajectory_widths(
@@ -69,6 +73,13 @@ class ProvingKey:
             session.add_step(wit)
         proof = session.prove()
         assert session.verify(proof), "warm-up proof rejected"
+        after = execache.stats()
+        return {k: after[k] - before[k] for k in after}
+
+    def exec_stats(self) -> dict:
+        """The kernel build-cache counters of this process."""
+        from repro_torch.core import execache
+        return execache.stats()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -75,7 +75,7 @@ def _fold_stack(stack: torch.Tensor, r_m: int) -> torch.Tensor:
 
 
 def sumcheck_prove(
-    tables: List[torch.Tensor],
+    tables: List[torch.Tensor] | torch.Tensor,
     products: Sequence[Tuple[int, ...]],
     transcript: Transcript,
     label: bytes,
@@ -83,7 +83,9 @@ def sumcheck_prove(
 ) -> Tuple[SumcheckProof, List[int], List[int]]:
     """Returns (proof, point, final_values) where final_values[k] = T_k(point).
 
-    ``coefs`` (optional) gives one public field coefficient per product:
+    ``tables`` is a list of K (n,) tables or their (K, n) stack, which
+    is then used as it is (no copy).  ``coefs`` (optional) gives one
+    public field coefficient per product:
     claim = sum_b sum_p coefs[p] * prod_k T_k(b)."""
     n = tables[0].shape[0]
     assert all(t.shape[0] == n for t in tables)
@@ -101,7 +103,8 @@ def sumcheck_prove(
         [list(p) + [k_one] * (degree - len(p)) for p in products],
         dtype=np.int64), device=device)
 
-    stack = torch.stack(tables)
+    stack = tables if isinstance(tables, torch.Tensor) else \
+        torch.stack(tables)
     messages: List[List[int]] = []
     point: List[int] = []
     for _ in range(rounds):

@@ -7,7 +7,8 @@ source started together, into ``build/kernels/`` at the repository root
 (listed in ``.gitignore``); the library name carries a hash of the
 sources and flags, so an unchanged tree reuses its libraries.  Nothing
 is built when a module is imported: the CPU tests import every module
-and never call a kernel.
+and never call a kernel.  `repro_torch.core.execache` reports what the
+cache did (``stats``).
 """
 from __future__ import annotations
 
@@ -57,6 +58,9 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: dict = {}
+#: build-cache counters of this process (`repro_torch.core.execache`)
+stats = {"hits": 0, "misses": 0, "disk_hits": 0, "disk_writes": 0,
+         "disk_corrupt": 0}
 #: seconds spent in the last `build_all` and the compiler's reports
 build_log: dict = {}
 
@@ -76,23 +80,45 @@ def _lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _load(path: pathlib.Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def build_all() -> dict:
-    """Compile every kernel source that has no current library, all
-    ``nvcc`` processes started together; load all libraries.  Returns
+    """Load every kernel library, compiling the sources that have none
+    on disk (all ``nvcc`` processes started together).  A library file
+    that fails to load is counted, deleted and rebuilt.  Returns
     ``{name: ctypes.CDLL}``.  Raises if a compile fails."""
     with _lock:
         if len(_libs) == len(SOURCES):
             return dict(_libs)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        todo = []
+        for name in SOURCES:
+            if name in _libs:
+                continue
+            path = _lib_path(name)
+            if path.exists():
+                try:
+                    _libs[name] = _load(path)
+                    stats["disk_hits"] += 1
+                    continue
+                except OSError:          # truncated or foreign file
+                    stats["disk_corrupt"] += 1
+                    path.unlink(missing_ok=True)
+            todo.append(name)
         t0 = time.perf_counter()
         procs = {}
-        for name, rel in SOURCES.items():
+        for name in todo:
             out = _lib_path(name)
-            if out.exists():
-                continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, f"-I{KERNEL_DIR}", "-o", str(tmp),
-                   str(KERNEL_DIR / rel)]
+                   str(KERNEL_DIR / SOURCES[name])]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, out)
@@ -100,27 +126,27 @@ def build_all() -> dict:
         for name, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
             build_log[name] = log
+            stats["misses"] += 1
             if proc.returncode != 0:
                 errors.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             else:
                 os.replace(tmp, out)
+                stats["disk_writes"] += 1
         build_log["seconds"] = time.perf_counter() - t0
         if errors:
             raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
-        for name in SOURCES:
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            for fn, argtypes in SIGNATURES.items():
-                if hasattr(lib, fn):
-                    getattr(lib, fn).argtypes = list(argtypes)
-                    getattr(lib, fn).restype = ctypes.c_int
-            _libs[name] = lib
+        for name in todo:
+            _libs[name] = _load(_lib_path(name))
         return dict(_libs)
 
 
 def lib(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        build_all()
-    return _libs[name]
+    loaded = _libs.get(name)
+    if loaded is not None:
+        with _lock:
+            stats["hits"] += 1
+        return loaded
+    return build_all()[name]
 
 
 def check(err: int, what: str) -> None:

@@ -132,3 +132,49 @@ def test_qmatmul_kernel_exact_at_int16_extremes(dev, fill):
         b = torch.full((k, n), fill, dtype=torch.int16)
         want = torch.full((m, n), -2 ** 15 * fill * k, dtype=torch.int64)
         assert torch.equal(qk.qmatmul_i64(a.to(dev), b.to(dev)).cpu(), want)
+
+
+def test_scbd_on_card_gives_golden_digest(dev):
+    """SC-BD's wiring tables built and summed on the card: the proof of
+    the audit-domain golden tensor hashes to the reference's digest
+    (tests/test_scbd.py), and a forged claim is rejected."""
+    from repro_torch.core import scbd
+    from repro_torch.core.transcript import Transcript
+
+    aux = torch.as_tensor(((np.arange(16) * 37) % 256) - 128, device=dev)
+    before = kernels.launch_counts()
+    proof = scbd.prove(aux, 8, Transcript(b"zkdl/scbd-audit"))
+    after = kernels.launch_counts()
+    assert proof.digest() == ("4b741340fd0f64f4c567b06911049dac"
+                              "8e71a23d0b02a47751fa430823ece455")
+    assert scbd.verify(proof, 16, 8, Transcript(b"zkdl/scbd-audit"))
+    proof.claim = (proof.claim + 1) % scbd.Q_MOD
+    assert not scbd.verify(proof, 16, 8, Transcript(b"zkdl/scbd-audit"))
+    assert after["fold"] > before["fold"]
+    assert after["modmul"] > before["modmul"]
+
+
+def test_fresh_process_builds_no_kernel(dev):
+    """After this process built every kernel, a fresh interpreter that
+    launches one reports no compile and no write (execache.stats)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    code = ("import json, torch; from repro_torch.core import execache; "
+            "from repro_torch.field import FQ; "
+            "from repro_torch.kernels import modmul as mk; "
+            "a = torch.arange(1, 9, device='cuda'); "
+            "mk.modmul(FQ, mk.modmul(FQ, a, a), a); "
+            "torch.cuda.synchronize(); print(json.dumps(execache.stats()))")
+    src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+    res = subprocess.run([sys.executable, "-c", code], check=True,
+                         env=dict(os.environ, PYTHONPATH=src),
+                         capture_output=True, text=True, timeout=300)
+    stats = json.loads(res.stdout.strip().splitlines()[-1])
+    assert stats["misses"] == 0 and stats["disk_writes"] == 0, stats
+    assert stats["disk_hits"] == len(_build.SOURCES) and stats["hits"] == 1
