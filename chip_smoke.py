@@ -37,7 +37,21 @@ Phases, each printing one JSON line:
    witness recipe), all 14 attacks rejected, the membership audit
    verified in-process and by a fresh verifier process, and SC-BD on
    the first AUDIT_SCBD_D entries of the window's stacked gap verified
-   with a forged claim rejected.
+   with a forged claim rejected;
+8. serve: the service layer (`repro_torch.launch.serve`) on the card.
+   (a) a `ProverService` at phase 4's geometry (T = 1, verify=True),
+   warmed, three steps, closed; (b) its directory again with the proof
+   of one more step written but its commit lost (``commit/pre-manifest``)
+   and a restart that replays it; (c) one window under subprocess
+   isolation whose first child SIGKILLs itself mid-prove; (d) two
+   tenants (weights 2:1) of a `ProvingGateway` on a pool of 2 at width
+   1024 with one worker killed, then the same windows on a pool of 1;
+   (e) `bind_service_dir` on (a)'s directory and a fresh-process
+   membership verify; (f) ``python -m repro_torch.launch.train
+   --proof-dir`` at d-model 256.  Exactly one COMMITTED line per
+   window, every proof read back from disk verified, no journal left;
+   it prints warm, submit, commit, child and memory numbers beside the
+   card's name and power limit.
 
 Phase 1 also starts a fresh interpreter that calls one kernel: it must
 report no compile (`repro_torch.core.execache.stats()`).
@@ -632,19 +646,19 @@ def _prove_again(pk, wit, profile: bool):
 
 
 def _full_witness(width: int, seed: int, qc, dev):
-    """One step witness at the full width and depth FULL_LAYERS: random
-    weights and data from ``seed``, the weights scaled by 1/sqrt(fan-in)
-    so every rescaled activation and gradient stays inside the 16-bit
-    range (the reference's fixed 0.3 scale overflows Z' at width 4096)."""
-    import numpy as np
-    from repro_torch.core.quantfc import quantize, train_step_witness
+    """One step witness at the full width and depth FULL_LAYERS, drawn as
+    the service's warm-up draws (`api.warm_witnesses`): weights and data
+    from ``seed``, the weights scaled by 2/sqrt(fan-in) so every rescaled
+    activation and gradient stays inside the 16-bit range (the
+    reference's fixed 0.3 scale overflows Z' at width 4096)."""
+    from repro_torch.core.pipeline import build_fcnn_graph
+    from repro_torch.core.pipeline.api import warm_witnesses
+    from repro_torch.core.pipeline.config import PipelineConfig
 
-    rng = np.random.default_rng(seed)
-    ws = [quantize(rng.uniform(-1, 1, (width, width)) * (2 / width ** 0.5),
-                   qc) for _ in range(FULL_LAYERS)]
-    x = quantize(rng.uniform(-1, 1, (FULL_BATCH, width)), qc)
-    y = quantize(rng.uniform(-1, 1, (FULL_BATCH, width)), qc)
-    return train_step_witness(x, y, ws, qc, device=dev)
+    cfg = PipelineConfig.from_graph(
+        build_fcnn_graph((width,) * (FULL_LAYERS + 1), batch=FULL_BATCH),
+        q_bits=qc.q_bits, r_bits=qc.r_bits, n_steps=1)
+    return warm_witnesses(cfg, seed, dev)[0]
 
 
 def phase_full(state, width: int, profile: bool = False) -> dict:
@@ -1028,6 +1042,466 @@ def phase_audit(state, width: int) -> dict:
             "full": dict(full, launches=launches_full), "_ok": ok}
 
 
+# ---------------------------------------------------------------------------
+# serve: the crash-safe prover service, the gateway and --proof-dir
+# ---------------------------------------------------------------------------
+
+SERVE_STEPS = 3                    # (a): windows of T = 1
+GATEWAY_WIDTH = 1024               # (d): pool 2 (two full-width proves
+                                   # would need ~95 GB at once)
+TRAIN_D_MODEL, TRAIN_BATCH = 256, 4  # (f): the trainer's own 0.3-scaled
+                                     # weights overflow from batch 8 here
+
+
+def _fs_type(path: str) -> str:
+    """The filesystem type of the mount that holds ``path``."""
+    path, best, kind = os.path.realpath(path), "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt = parts[1]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best):
+                best, kind = mnt, parts[2]
+    return f"{kind} at {best}"
+
+
+def _verify_dir(out: str, windows, label: bytes, dev) -> dict:
+    """The exactly-once audit of one service or tenant directory from
+    disk: one COMMITTED line per window, every proof accepted by
+    `verify_bytes` under ``vk.bin``, no journal left."""
+    from repro_torch.core.pipeline import verify_bytes
+    from repro_torch.core.pipeline.proofio import decode_vk
+    from repro_torch.launch import serve
+
+    counts = serve.manifest_commit_counts(out)
+    with open(os.path.join(out, "vk.bin"), "rb") as f:
+        vk = decode_vk(f.read(), max_merged_len=1 << 30, device=dev)
+    verified, t0 = [], time.perf_counter()
+    for w in windows:
+        with open(os.path.join(out, f"proof_{w:06d}.bin"), "rb") as f:
+            verified.append(verify_bytes(vk, f.read(), label=label))
+    journal = serve.journal_steps(serve.journal_dir(out))
+    ok = (all(counts.get(w, 0) == 1 for w in windows)
+          and set(counts) == set(windows) and all(verified) and not journal)
+    return {"commit_lines": {str(w): counts.get(w, 0) for w in windows},
+            "verified_from_disk": verified,
+            "verify_s": time.perf_counter() - t0,
+            "journal_left": journal, "ok": ok}
+
+
+def _stamp_commits(obj):
+    """Wall-clock stamps of the COMMITTED lines ``obj`` appends (a
+    service or a gateway tenant): {window: perf_counter at the append}."""
+    stamps, orig = {}, obj._manifest_append
+
+    def append(rec):
+        orig(rec)
+        if rec.get("status") == "COMMITTED":
+            stamps[int(rec["window"])] = time.perf_counter()
+    obj._manifest_append = append
+    return stamps
+
+
+def _submit_steps(svc, wits) -> dict:
+    """Submit ``wits`` (T = 1) and time each `submit` (journal write
+    included); the size of each journal segment on disk."""
+    from repro_torch.launch import serve
+
+    submit_s, mb, submitted_at = [], [], {}
+    jdir = serve.journal_dir(svc.out_dir)
+    for wit in wits:
+        step = svc.next_step
+        t0 = time.perf_counter()
+        svc.submit(wit)
+        submitted_at[step] = time.perf_counter()
+        submit_s.append(submitted_at[step] - t0)
+        path = os.path.join(jdir, f"step_{step:08d}.npz")
+        mb.append(os.path.getsize(path) / 1e6 if os.path.exists(path)
+                  else None)
+    return {"submit_s": submit_s, "journal_mb": mb, "_at": submitted_at}
+
+
+def _shared_faults(graph, qc, dev) -> dict:
+    """The two faults the port shares with the reference at this
+    geometry, which the service repairs: the reference's warm-up stream
+    (its synthetic SGD trajectory) leaves the Q-bit range, and the
+    default decode cap refuses the ``vk.bin`` a prove child reads."""
+    from repro_torch.core.pipeline import VerifyingKey
+    from repro_torch.core.pipeline.graph import graph_widths
+    from repro_torch.core.pipeline.proofio import ProofDecodeError, decode_vk
+    from repro_torch.core.pipeline.config import PipelineConfig
+    from repro_torch.core.quantfc import synthetic_sgd_trajectory_widths
+
+    out = {}
+    try:
+        synthetic_sgd_trajectory_widths(1, graph_widths(graph), FULL_BATCH,
+                                        qc, seed=0, device=dev)
+        out["reference_warm_stream"] = "no error"
+    except OverflowError as exc:
+        out["reference_warm_stream"] = f"OverflowError: {exc}"
+    cfg = PipelineConfig.from_graph(graph, q_bits=qc.q_bits,
+                                    r_bits=qc.r_bits, n_steps=1)
+    try:
+        decode_vk(VerifyingKey(cfg=cfg).to_bytes())
+        out["default_decode_cap"] = "accepted"
+    except ProofDecodeError as exc:
+        out["default_decode_cap"] = f"ProofDecodeError: {exc}"
+    return out
+
+
+def _serve_thread(width: int, out: str, dev) -> dict:
+    """(a): ProverService at the full width, T = 1, verify=True, warmed,
+    three steps from phase `full`'s witness recipe, then close."""
+    import torch
+    from repro_torch.core.pipeline import build_fcnn_graph
+    from repro_torch.core.quantfc import QuantConfig
+    from repro_torch.launch.serve import ProverService
+
+    qc = QuantConfig()
+    graph = build_fcnn_graph((width,) * (FULL_LAYERS + 1), batch=FULL_BATCH)
+    faults = _shared_faults(graph, qc, dev)
+    torch.cuda.reset_peak_memory_stats()
+    svc = ProverService(graph, qc, n_steps=1, out_dir=out, verify=True,
+                        rng_seed=0, device=dev)
+    svc.start(warm=True)
+    reserved_after_warm = torch.cuda.memory_reserved()
+    stamps = _stamp_commits(svc)
+    wits = [_full_witness(width, s, qc, dev) for s in range(SERVE_STEPS)]
+    torch.cuda.synchronize()
+    sub = _submit_steps(svc, wits)
+    del wits
+    svc.close()
+    at = sub.pop("_at")
+    return dict(sub, shared_faults=faults, warm_s=svc.warm_seconds,
+                warm_stats=svc.warm_stats,
+                prove_s=[p[3] for p in svc.proofs],
+                commit_latency_s=[stamps[w] - at[w] for w in sorted(stamps)],
+                proof_bytes=[p[2] for p in svc.proofs], stats=svc.stats,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                max_memory_reserved=torch.cuda.max_memory_reserved(),
+                memory_reserved_after_warm_release=reserved_after_warm,
+                journal_fs=_fs_type(out), tmp_fs=_fs_type(
+                    os.environ.get("TMPDIR", "/tmp")),
+                _ok=svc.stats["proved"] == SERVE_STEPS)
+
+
+def _serve_restart(width: int, out: str, dev) -> dict:
+    """(b): (a)'s directory, one more step with ``commit/pre-manifest``
+    injected once (the proof lands, its manifest line does not, the
+    worker dies), then a restart that replays and commits it."""
+    from repro_torch.core.pipeline import build_fcnn_graph
+    from repro_torch.core.quantfc import QuantConfig
+    from repro_torch.launch.serve import ProverService
+    from repro_torch.train.resilience import FailureInjector, SimulatedFailure
+
+    qc = QuantConfig()
+    graph = build_fcnn_graph((width,) * (FULL_LAYERS + 1), batch=FULL_BATCH)
+    svc = ProverService(graph, qc, n_steps=1, out_dir=out, verify=True,
+                        rng_seed=0, device=dev,
+                        injector=FailureInjector.from_spec(
+                            "commit/pre-manifest@0"))
+    svc.start(warm=False)
+    step = svc.next_step
+    svc.submit(_full_witness(width, step, qc, dev))
+    try:
+        svc.close()
+        crashed = False
+    except SimulatedFailure:
+        crashed = True
+    t0 = time.perf_counter()
+    svc2 = ProverService(graph, qc, n_steps=1, out_dir=out, verify=True,
+                         rng_seed=0, device=dev)
+    svc2.start(warm=False)
+    restart_s = time.perf_counter() - t0
+    replayed, next_step = svc2.stats["replayed"], svc2.next_step
+    svc2.close()
+    audit = _verify_dir(out, range(step + 1), b"zkdl/train", dev)
+    return {"crashed_before_commit": crashed, "resubmitted_step": step,
+            "restart_s": restart_s, "replayed": replayed,
+            "next_step_after_restart": next_step,
+            "proved_after_restart": svc2.stats["proved"], "audit": audit,
+            "_ok": crashed and replayed == 1 and svc2.stats["proved"] == 1
+            and next_step == step + 1 and audit["ok"]}
+
+
+def _serve_subprocess(width: int, out: str, dev) -> dict:
+    """(c): one window under subprocess isolation; the first child
+    SIGKILLs itself at ``prove/mid`` (after its setup), the retry proves
+    and the parent commits.  Both processes' peak memory: the child
+    prints its own, the parent's comes from its allocator."""
+    import torch
+    from repro_torch.core.pipeline import build_fcnn_graph
+    from repro_torch.core.quantfc import QuantConfig
+    from repro_torch.launch import serve
+
+    qc = QuantConfig()
+    graph = build_fcnn_graph((width,) * (FULL_LAYERS + 1), batch=FULL_BATCH)
+    results = []
+    orig = serve.supervise.run_subprocess_supervised
+
+    def kept(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        results.append(res)
+        return res
+
+    env = {"ZKDL_FAULTS": "prove/mid@0:kill",
+           "ZKDL_FAULTS_ONCE": os.path.join(out, "fired")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    serve.supervise.run_subprocess_supervised = kept
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        svc = serve.ProverService(graph, qc, n_steps=1, out_dir=out,
+                                  verify=True, rng_seed=0, device=dev,
+                                  isolation="subprocess", max_attempts=3,
+                                  backoff_base=0.1, prove_timeout=900)
+        svc.start(warm=True)
+        reserved_before_child = torch.cuda.memory_reserved()
+        svc.submit(_full_witness(width, 0, qc, dev))
+        svc.close()
+    finally:
+        serve.supervise.run_subprocess_supervised = orig
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    (res,) = results
+    child = {}
+    for line in res.value.stdout.splitlines():
+        if line.startswith("[serve:child] {"):
+            child = json.loads(line[len("[serve:child] "):])
+    attempts = [{"seconds": a.seconds, "error": a.error, "signal": a.signal}
+                for a in res.attempts]
+    audit = _verify_dir(out, [0], b"zkdl/train", dev)
+    man = serve.read_manifest(out)
+    ok = (len(attempts) == 2 and attempts[0]["signal"] == 9
+          and man[0]["attempts"] == 2 and audit["ok"] and bool(child))
+    return {"attempts": attempts, "warm_s": svc.warm_seconds,
+            "child": child,
+            "child_cold_start_s": (attempts[-1]["seconds"]
+                                   - child.get("prove_s", 0.0)),
+            "killed_child_s": attempts[0]["seconds"],
+            "parent_max_memory_reserved": torch.cuda.max_memory_reserved(),
+            "parent_max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "parent_memory_reserved_before_child": reserved_before_child,
+            "card_free_after": torch.cuda.mem_get_info()[0],
+            "commit_prove_s": man[0]["prove_s"], "audit": audit, "_ok": ok}
+
+
+def _gateway_run(out: str, graph, qc, wits, dev, pool: int, injector):
+    """Two tenants (weights 2:1), one window each, on a pool of ``pool``
+    workers: (gateway, tenants, commit stamps, submit stamps, wall s)."""
+    from repro_torch.launch.serve import ProvingGateway
+
+    gw = ProvingGateway(out, n_workers=pool, backoff_base=0.01,
+                        injector=injector, device=dev).start()
+    tenants, stamps, at = {}, {}, {}
+    for i, (name, weight) in enumerate((("alice", 2.0), ("bob", 1.0))):
+        tenants[name] = gw.add_tenant(name, graph, qc, n_steps=1,
+                                      weight=weight, verify=True,
+                                      rng_seed=i, warm=(i == 0))
+        stamps[name] = _stamp_commits(tenants[name])
+    t0 = time.perf_counter()
+    for name, wit in zip(tenants, wits):
+        gw.submit(name, wit)
+        at[name] = time.perf_counter()
+    gw.close()
+    return gw, tenants, stamps, at, time.perf_counter() - t0
+
+
+def _serve_gateway(out: str, dev) -> dict:
+    """(d): two tenants (weights 2:1) on a pool of 2 at GATEWAY_WIDTH,
+    one window each, the first dequeue killing its worker thread; both
+    commit exactly once, and `dir_status` agrees with `status()`.  Then
+    the same two windows on a pool of 1, for the wall time."""
+    from repro_torch.core.pipeline import build_fcnn_graph
+    from repro_torch.core.quantfc import QuantConfig
+    from repro_torch.launch.serve import dir_status
+    from repro_torch.train.resilience import FailureInjector
+
+    qc = QuantConfig()
+    graph = build_fcnn_graph((GATEWAY_WIDTH,) * (FULL_LAYERS + 1),
+                             batch=FULL_BATCH)
+    wits = [_full_witness(GATEWAY_WIDTH, 10 + i, qc, dev) for i in (0, 1)]
+    gw, tenants, stamps, at, wall = _gateway_run(
+        os.path.join(out, "pool2"), graph, qc, wits, dev, 2,
+        FailureInjector.from_spec("pool/worker-kill@0"))
+    _, tenants1, _, _, wall1 = _gateway_run(
+        os.path.join(out, "pool1"), graph, qc, wits, dev, 1, None)
+    live, disk = gw.status(), dir_status(os.path.join(out, "pool2"))
+    agree = all(
+        disk["tenants"][n]["by_status"].get("COMMITTED", 0)
+        == live["tenants"][n]["committed"]
+        == disk["tenants"][n]["commit_lines"]
+        == disk["tenants"][n]["proof_files"]
+        and disk["tenants"][n]["journal_steps"] == 0 for n in tenants)
+    audits = {n: _verify_dir(t.dir, [0], b"zkdl/train", dev)
+              for n, t in tenants.items()}
+    ok = (agree and all(a["ok"] for a in audits.values())
+          and live["workers"]["respawns"] == 1
+          and all(t.stats["proved"] == 1 for t in tenants.values()))
+    return {"width": GATEWAY_WIDTH, "pool": 2, "wall_s": wall,
+            "prove_s": {n: [p[3] for p in t.proofs]
+                        for n, t in tenants.items()},
+            "pool1_wall_s": wall1,
+            "pool1_prove_s": {n: [p[3] for p in t.proofs]
+                              for n, t in tenants1.items()},
+            "commit_latency_s": {n: stamps[n][0] - at[n] for n in tenants
+                                 if 0 in stamps[n]},
+            "respawns": live["workers"]["respawns"],
+            "worker_events": live["workers"]["events"],
+            "status_agrees_with_dir_status": agree, "audits": audits,
+            "launch_counts_note": "approximate: two pool threads bump "
+                                  "the wrappers' counters without a lock",
+            "_ok": ok}
+
+
+def _serve_membership(out: str, dev) -> dict:
+    """(e): `bind_service_dir` on (a)'s directory, then a membership audit
+    of window 0 verified by a fresh verifier process."""
+    from repro_torch.audit import membership as mem
+    from repro_torch.audit.report import _child_env
+    from repro_torch.core.pipeline.proofio import decode_vk
+
+    t0 = time.perf_counter()
+    tree, binding = mem.bind_service_dir(out)
+    coms = {}
+    for w in (0, 1):
+        with open(os.path.join(out, f"proof_{w:06d}.bin"), "rb") as f:
+            coms[w] = mem.sample_coms(f.read())
+    queried = ([mem.com_to_bytes(c) for c in coms[0][:3]]
+               + [mem.com_to_bytes(c) for c in coms[1][:2]])
+    audit = mem.prove_membership(tree, binding, 0, queried)
+    with open(os.path.join(out, "audit_000000.bin"), "wb") as f:
+        f.write(audit.to_bytes())
+    with open(os.path.join(out, "vk.bin"), "rb") as f:
+        merged = decode_vk(f.read(), max_merged_len=1 << 30).cfg.merged_len
+    bind_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.audit", "verify-membership",
+         "--dir", out, "--window", "0", "--label", "zkdl/train",
+         "--device", dev.type, "--max-merged-len", str(merged)],
+        capture_output=True, text=True, env=_child_env(), timeout=600)
+    fresh_s = time.perf_counter() - t0
+    try:
+        verdict = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        verdict = {"ok": False, "stderr": proc.stderr[-2000:]}
+    ok = (proc.returncode == 0 and verdict.get("ok")
+          and [r["in_dataset"] for r in verdict["results"]] == [True] * 5
+          and [r["in_window"] for r in verdict["results"]]
+          == [True] * 3 + [False] * 2
+          and binding.n_samples == FULL_BATCH * len(binding.windows)
+          and any(ln.get("event") == "DATASET_BINDING"
+                  for ln in _manifest_lines(out)))
+    return {"windows_bound": len(binding.windows),
+            "samples": binding.n_samples, "root": binding.root.hex(),
+            "bind_s": bind_s, "fresh_verifier_s": fresh_s,
+            "verdict": verdict, "_ok": bool(ok)}
+
+
+def _manifest_lines(out: str) -> list:
+    from repro_torch.launch import serve
+    with open(os.path.join(out, serve.MANIFEST)) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def _serve_trainer(out: str, dev) -> dict:
+    """(f): ``python -m repro_torch.launch.train --proof-dir`` (its
+    ``main``, in this process so its launches count) at --d-model 256,
+    two windows of T = 2."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+
+    argv = ["--arch", "fcnn-zkdl-16l", "--layers", str(FULL_LAYERS),
+            "--d-model", str(TRAIN_D_MODEL), "--global-batch",
+            str(TRAIN_BATCH), "--steps", "4", "--prove-window", "2",
+            "--proof-dir", out, "--device", dev.type]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    wall = time.perf_counter() - t0
+    log = buf.getvalue().splitlines()
+    audit = _verify_dir(out, [0, 1], b"zkdl/train", dev)
+    return {"argv": argv, "rc": rc, "wall_s": wall, "log": log[-4:],
+            "audit": audit,
+            "_ok": rc == 0 and audit["ok"]
+            and sum("verified=True" in ln for ln in log) == 2}
+
+
+def phase_serve(state, width: int) -> dict:
+    import shutil
+
+    import torch
+    from repro_torch import kernels
+
+    work = os.path.join(OUT_DIR, "serve")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    parts, t = {}, {}
+    import gc
+
+    for name, fn in (
+            ("a_thread", lambda: _serve_thread(width, os.path.join(
+                work, "service"), dev)),
+            ("b_restart", lambda: _serve_restart(width, os.path.join(
+                work, "service"), dev)),
+            ("c_subprocess", lambda: _serve_subprocess(width, os.path.join(
+                work, "subprocess"), dev)),
+            ("d_gateway", lambda: _serve_gateway(os.path.join(
+                work, "gateway"), dev)),
+            ("e_membership", lambda: _serve_membership(os.path.join(
+                work, "service"), dev)),
+            ("f_trainer", lambda: _serve_trainer(os.path.join(
+                work, "trainer"), dev))):
+        t0 = time.perf_counter()
+        parts[name] = fn()
+        t[name] = time.perf_counter() - t0
+        gc.collect()                  # services and keys of this part
+        torch.cuda.empty_cache()
+    counts = kernels.launch_counts()
+    state["launches_serve"] = counts
+    ok = all([p.pop("_ok") for p in parts.values()]) and \
+        all(v > 0 for v in counts.values())
+    smi = state["smi"]
+    a, c = parts["a_thread"], parts["c_subprocess"]
+    gb = 1e9
+    summary = [
+        f"warm {a['warm_s']:.2f} s",
+        "submit s per step " + ", ".join(f"{v:.3f}" for v in a["submit_s"])
+        + "; journal MB per step " + ", ".join(
+            f"{v:.1f}" for v in a["journal_mb"] if v is not None)
+        + f" ({a['journal_fs']})",
+        "prove s per window " + ", ".join(f"{v:.2f}" for v in a["prove_s"])
+        + "; commit latency s " + ", ".join(
+            f"{v:.2f}" for v in a["commit_latency_s"]),
+        f"child cold start {c['child_cold_start_s']:.2f} s, child peak "
+        f"{c['child'].get('max_memory_allocated', 0) / gb:.1f} GB; parent "
+        f"peak reserved {c['parent_max_memory_reserved'] / gb:.1f} GB "
+        f"(reserved when the child ran "
+        f"{c['parent_memory_reserved_before_child'] / gb:.1f} GB)",
+        f"restart replayed {parts['b_restart']['replayed']} step(s) in "
+        f"{parts['b_restart']['restart_s']:.2f} s",
+        f"gateway at width {GATEWAY_WIDTH}: two windows in "
+        f"{parts['d_gateway']['wall_s']:.2f} s on a pool of 2, "
+        f"{parts['d_gateway']['pool1_wall_s']:.2f} s on a pool of 1",
+        "launches " + json.dumps(counts) + " (approximate under the "
+        "pool of 2)"]
+    for line in summary:
+        print(f"serve: {line} [{smi}]", flush=True)
+    return {"width": width, "batch": FULL_BATCH, "layers": FULL_LAYERS,
+            "reduced": {"layers": [16, FULL_LAYERS]}, "nvidia_smi": smi,
+            "seconds_by_part": t, **parts, "launches": counts, "_ok": ok}
+
+
 KERNEL_META = {
     "modmul": ("src/repro_torch/kernels/modmul/modmul.cu",
                "src/repro/kernels/modmul/kernel.py:50"),
@@ -1060,6 +1534,8 @@ def kernel_line(state) -> dict:
                                                  {}).get(name, 0),
                      "launches_audit": state.get("launches_audit",
                                                  {}).get(name, 0),
+                     "launches_serve": state.get("launches_serve",
+                                                 {}).get(name, 0),
                      "max_abs_err": kb["max_abs_err"], "ms": kb["ms"],
                      "plain_ms": kb["plain_ms"], "bound_ms": b_ms,
                      "bound_by": b_by,
@@ -1071,7 +1547,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--width", type=int, default=4096)
     ap.add_argument("--phases",
-                    default="build,kernels,golden,full,train,open,audit")
+                    default="build,kernels,golden,full,train,open,audit,"
+                            "serve")
     ap.add_argument("--profile", action="store_true",
                     help="trace the second full-width prove with "
                          "torch.profiler")
@@ -1101,6 +1578,7 @@ def main(argv=None) -> int:
         "train": lambda: phase_train(state, args.width),
         "open": lambda: phase_open(state),
         "audit": lambda: phase_audit(state, args.width),
+        "serve": lambda: phase_serve(state, args.width),
     }
     failed, record = [], {}
     for name in phases:

@@ -25,15 +25,18 @@ so a proof presented for window W must carry EXACTLY window W's sample
 commitments — cross-window replay of an otherwise-honest proof fails
 the digest check before any Merkle work happens.
 
-The byte formats and checks are the reference's (`repro.audit.membership`).
-Binding a prover service's output directory (``bind_service_dir``) waits
-for the port of the service layer.
+The byte formats and checks are the reference's (`repro.audit.membership`);
+``bind_service_dir`` binds a prover service's output directory
+(`repro_torch.launch.serve`) as the reference's does.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
+import os
 import struct
+import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from repro_torch.core import merkle
@@ -314,3 +317,43 @@ def verify_membership(binding: DatasetBinding, audit: MembershipAudit,
     return MembershipVerdict(ok=True, reason="", results=[
         QueryResult(com=q, in_dataset=m, in_window=q in wset)
         for q, m in zip(audit.queried, in_dataset)])
+
+
+def bind_service_dir(out_dir: str, hash_name: str = "sha256"
+                     ) -> Tuple[merkle.MerkleTree, DatasetBinding]:
+    """Bind every COMMITTED window of a ProverService output directory:
+    writes ``dataset.bin`` next to ``vk.bin`` and records the binding
+    in ``MANIFEST.jsonl`` (an event line without a ``window`` key, which
+    `serve.read_manifest` ignores by design)."""
+    from repro_torch.launch import serve
+
+    man = serve.read_manifest(out_dir)
+    committed = sorted(w for w, rec in man.items()
+                       if rec.get("status") == "COMMITTED")
+    if not committed:
+        raise ValueError(f"no COMMITTED windows in {out_dir}")
+    window_coms = {}
+    for w in committed:
+        with open(os.path.join(out_dir, f"proof_{w:06d}.bin"), "rb") as f:
+            window_coms[w] = sample_coms(f.read())
+    tree, binding = build_binding(window_coms, hash_name)
+
+    path = os.path.join(out_dir, BINDING_FILE)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(binding.to_bytes())
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+    line = json.dumps({"event": "DATASET_BINDING",
+                       "hash": hash_name,
+                       "root": binding.root.hex(),
+                       "n_windows": len(binding.windows),
+                       "n_samples": binding.n_samples,
+                       "ts": time.time()})
+    with open(os.path.join(out_dir, serve.MANIFEST), "a") as f:
+        f.write(line + "\n")
+        f.flush()
+        os.fsync(f.fileno())
+    return tree, binding

@@ -13,8 +13,10 @@ module reports what that cache did, under the reference's counter names:
 * ``misses``: a source compiled by ``nvcc`` in this process;
 * ``disk_hits``: a library loaded from ``build/kernels/``;
 * ``disk_writes``: a freshly compiled library written there;
-* ``disk_corrupt``: a library file that failed to load, was deleted and
-  was rebuilt (neither a crash nor a fall back to the plain versions).
+* ``disk_corrupt``: a library file whose SHA-256 does not match the
+  digest written beside it (a truncated library), or that failed to
+  load, deleted and rebuilt (neither a crash nor a fall back to the
+  plain versions).
 
 A process that finds every library on disk reports ``misses == 0`` and
 ``disk_writes == 0``: the cross-process "builds nothing" contract.  The

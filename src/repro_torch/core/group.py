@@ -15,6 +15,8 @@ applies to bound its compiled shapes is left out.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -253,6 +255,9 @@ def msm_field(points: torch.Tensor, scalars_mont: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _GEN_CACHE: dict = {}
+# held across the check, the derivation and the insert: two prover
+# threads asking for one label derive it once
+_GEN_LOCK = threading.Lock()
 
 
 def derive_generators(label: bytes, n: int, device) -> torch.Tensor:
@@ -263,14 +268,15 @@ def derive_generators(label: bytes, n: int, device) -> torch.Tensor:
     extends instead of re-deriving."""
     device = torch.device(device)
     key = (label, str(device))
-    cached = _GEN_CACHE.get(key)
-    have = 0 if cached is None else cached.shape[0]
-    if have >= n:
-        return cached[:n]
-    new = _kernel_derive(label, have, n - have, device)
-    out = new if cached is None else torch.cat([cached, new])
-    _GEN_CACHE[key] = out
-    return out
+    with _GEN_LOCK:
+        cached = _GEN_CACHE.get(key)
+        have = 0 if cached is None else cached.shape[0]
+        if have >= n:
+            return cached[:n]
+        new = _kernel_derive(label, have, n - have, device)
+        out = new if cached is None else torch.cat([cached, new])
+        _GEN_CACHE[key] = out
+        return out
 
 
 def decode_group(a: torch.Tensor) -> int:

@@ -51,25 +51,19 @@ class ProvingKey:
         return self.keys.device
 
     def warm(self, seed: int = 0) -> dict:
-        """Prove and verify one throwaway synthetic window, so the first
-        real prove pays no kernel build or first-launch cost.  Returns
-        the kernel build-cache stats delta (`repro_torch.core.execache`):
-        a process that found every library on disk reports no misses."""
+        """Prove and verify one throwaway window (`warm_witnesses`), so
+        the first real prove pays no kernel build or first-launch cost.
+        Returns the kernel build-cache stats delta
+        (`repro_torch.core.execache`): a process that found every library
+        on disk reports no misses."""
         import numpy as np
 
         from repro_torch.core import execache
-        from repro_torch.core.quantfc import synthetic_sgd_trajectory_widths
-        from repro_torch.core.pipeline.graph import graph_skips, graph_widths
         from repro_torch.core.pipeline.session import ProofSession
 
         before = execache.stats()
-        cfg = self.cfg
-        quant = QuantConfig(q_bits=cfg.q_bits, r_bits=cfg.r_bits)
-        wits = synthetic_sgd_trajectory_widths(
-            cfg.n_steps, graph_widths(cfg.graph), cfg.batch, quant,
-            seed=seed, skips=graph_skips(cfg.graph), device=self.device)
         session = ProofSession(self, np.random.default_rng(seed))
-        for wit in wits:
+        for wit in warm_witnesses(self.cfg, seed, self.device):
             session.add_step(wit)
         proof = session.prove()
         assert session.verify(proof), "warm-up proof rejected"
@@ -80,6 +74,36 @@ class ProvingKey:
         """The kernel build-cache counters of this process."""
         from repro_torch.core import execache
         return execache.stats()
+
+
+def warm_witnesses(cfg: PipelineConfig, seed: int, device) -> list:
+    """``cfg.n_steps`` throwaway step witnesses at the key's geometry for
+    `ProvingKey.warm`: weights from ``seed`` scaled by 2/sqrt(fan-in),
+    fresh data each step, no SGD update between steps (no relation of
+    the proof binds one step's weights to the next).  The rescaled
+    activations and gradients stay near 2^R at any width, far inside the
+    Q-bit range.  The reference warms on its synthetic SGD stream, whose
+    0.3-scaled weights overflow that range at batch 128 from width 128 on
+    (its `OverflowError`); nothing of a warm-up reaches any proof byte."""
+    import numpy as np
+
+    from repro_torch.core.pipeline.graph import graph_skips, graph_widths
+    from repro_torch.core.quantfc import quantize, train_step_witness
+
+    quant = QuantConfig(q_bits=cfg.q_bits, r_bits=cfg.r_bits)
+    widths = graph_widths(cfg.graph)
+    rng = np.random.default_rng(seed)
+    ws = [quantize(rng.uniform(-1, 1, (widths[l], widths[l + 1]))
+                   * (2 / widths[l] ** 0.5), quant)
+          for l in range(len(widths) - 1)]
+    wits = []
+    for _ in range(cfg.n_steps):
+        x = quantize(rng.uniform(-1, 1, (cfg.batch, widths[0])), quant)
+        y = quantize(rng.uniform(-1, 1, (cfg.batch, widths[-1])), quant)
+        wits.append(train_step_witness(x, y, ws, quant,
+                                       skips=graph_skips(cfg.graph),
+                                       device=device))
+    return wits
 
 
 @dataclasses.dataclass(frozen=True)

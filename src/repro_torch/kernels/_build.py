@@ -80,6 +80,22 @@ def _lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _digest_path(path: pathlib.Path) -> pathlib.Path:
+    return path.with_name(path.name + ".sha256")
+
+
+def _intact(path: pathlib.Path) -> bool:
+    """The library file is the one this cache wrote: its SHA-256 equals
+    the digest written beside it.  A truncated library must not reach
+    the loader: mapping one can kill the process (SIGBUS) instead of
+    raising."""
+    try:
+        want = _digest_path(path).read_text().strip()
+        return want == hashlib.sha256(path.read_bytes()).hexdigest()
+    except OSError:
+        return False
+
+
 def _load(path: pathlib.Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in SIGNATURES.items():
@@ -92,8 +108,9 @@ def _load(path: pathlib.Path) -> ctypes.CDLL:
 def build_all() -> dict:
     """Load every kernel library, compiling the sources that have none
     on disk (all ``nvcc`` processes started together).  A library file
-    that fails to load is counted, deleted and rebuilt.  Returns
-    ``{name: ctypes.CDLL}``.  Raises if a compile fails."""
+    whose digest does not match (`_intact`) or that fails to load is
+    counted, deleted and rebuilt.  Returns ``{name: ctypes.CDLL}``.
+    Raises if a compile fails."""
     with _lock:
         if len(_libs) == len(SOURCES):
             return dict(_libs)
@@ -104,13 +121,15 @@ def build_all() -> dict:
                 continue
             path = _lib_path(name)
             if path.exists():
-                try:
-                    _libs[name] = _load(path)
-                    stats["disk_hits"] += 1
-                    continue
-                except OSError:          # truncated or foreign file
-                    stats["disk_corrupt"] += 1
-                    path.unlink(missing_ok=True)
+                if _intact(path):
+                    try:
+                        _libs[name] = _load(path)
+                        stats["disk_hits"] += 1
+                        continue
+                    except OSError:      # a foreign file
+                        pass
+                stats["disk_corrupt"] += 1
+                path.unlink(missing_ok=True)
             todo.append(name)
         t0 = time.perf_counter()
         procs = {}
@@ -131,6 +150,10 @@ def build_all() -> dict:
                 errors.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             else:
                 os.replace(tmp, out)
+                digest = _digest_path(out).with_suffix(f".{os.getpid()}.tmp")
+                digest.write_text(
+                    hashlib.sha256(out.read_bytes()).hexdigest() + "\n")
+                os.replace(digest, _digest_path(out))
                 stats["disk_writes"] += 1
         build_log["seconds"] = time.perf_counter() - t0
         if errors:

@@ -10,8 +10,14 @@ weights and data are drawn from the same seeded numpy stream in the same
 order, and that stream then feeds every window's blinds, so the proofs
 are byte-identical to the reference's.  Without overrides this is the
 paper-scale 16 x 4096 network.  Runs on the card unless ``--device cpu``.
-The prover service behind ``--proof-dir`` and the reference's other
-model families are not ported yet (ROADMAP.md queue 1, items 14-16).
+
+With ``--proof-dir`` the crash-safe prover service
+(`repro_torch.launch.serve.ProverService`) takes over, as in the
+reference: setup warms every kernel with a throwaway window, training
+never blocks on proving (each step witness is journaled and queued),
+and each window's proof streams to ``proof_NNNNNN.bin`` beside a
+serialized ``vk.bin``.  The reference's other model families are not
+ported yet (ROADMAP.md queue 1, item 16).
 """
 from __future__ import annotations
 
@@ -29,9 +35,6 @@ def run_zkdl_train(cfg, args) -> int:
     from repro_torch.core.pipeline import compile as zk_compile
     from repro_torch.launch import steps as steps_mod
 
-    if args.proof_dir:
-        raise SystemExit("--proof-dir: the prover service is not ported to "
-                         "repro_torch yet (ROADMAP.md queue 1, item 14)")
     if args.widths:
         widths = tuple(int(w) for w in args.widths.split(","))
     else:
@@ -48,7 +51,20 @@ def run_zkdl_train(cfg, args) -> int:
     print(f"[train] zkdl {cfg.family}: {shape}, batch {args.global_batch}, "
           f"aggregating {window} step(s)/proof on {dev}", flush=True)
 
-    pk, vk = zk_compile(zk_cfg.graph, qc, n_steps=zk_cfg.n_steps, device=dev)
+    service = None
+    if args.proof_dir:
+        from repro_torch.launch.serve import ProverService
+        service = ProverService(zk_cfg.graph, qc, n_steps=zk_cfg.n_steps,
+                                out_dir=args.proof_dir,
+                                verify=not args.no_verify, device=dev)
+        service.start(warm=True)
+        pk = service.pk
+        print(f"[train] prover service warm in {service.warm_seconds:.1f}s "
+              f"(kernel build cache: {service.warm_stats}); streaming "
+              f"proofs to {args.proof_dir}", flush=True)
+    else:
+        pk, _ = zk_compile(zk_cfg.graph, qc, n_steps=zk_cfg.n_steps,
+                           device=dev)
     rng = np.random.default_rng(0)
     ws = [quantfc.quantize(
         rng.uniform(-1, 1, (widths[l], widths[l + 1])) * 0.3, qc)
@@ -63,8 +79,10 @@ def run_zkdl_train(cfg, args) -> int:
               f"in {dt:.1f}s ({dt / proof.n_steps:.1f}s/step, "
               f"verified={not args.no_verify})", flush=True)
 
-    hook = steps_mod.ZkdlProveHook(pk, rng, verify=not args.no_verify,
-                                   on_proof=on_proof)
+    hook = None
+    if service is None:
+        hook = steps_mod.ZkdlProveHook(pk, rng, verify=not args.no_verify,
+                                       on_proof=on_proof)
     step_fn = steps_mod.build_zkdl_step(zk_cfg, device=dev)
     for step in range(args.steps):
         lo = (step * args.global_batch) % data_x.shape[0]
@@ -77,11 +95,23 @@ def run_zkdl_train(cfg, args) -> int:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         step_s = time.perf_counter() - t0          # training only
-        hook.observe(step, wit)                    # logged per window
+        if service is not None:
+            service.submit(wit)                    # journaled, non-blocking
+        else:
+            hook.observe(step, wit)                # logged per window
         if step % args.log_every == 0:
             print(f"[train] step {step} {step_s:.2f}s", flush=True)
-    print(f"[train] done: {args.steps} steps, {len(hook.proofs)} "
-          f"aggregated proofs, {hook.n_pending} step(s) pending "
+    if service is not None:
+        service.close()
+        for window, path, n_bytes, secs in service.proofs:
+            print(f"[train] window {window}: {n_bytes} B -> {path} "
+                  f"({secs:.2f}s, verified={not args.no_verify})",
+                  flush=True)
+        n_proofs, pending = service.n_proofs, args.steps % window
+    else:
+        n_proofs, pending = len(hook.proofs), hook.n_pending
+    print(f"[train] done: {args.steps} steps, {n_proofs} "
+          f"aggregated proofs, {pending} step(s) pending "
           f"(next window)", flush=True)
     return 0
 
@@ -103,7 +133,9 @@ def main(argv=None) -> int:
     ap.add_argument("--no-verify", action="store_true",
                     help="skip verifying emitted proofs")
     ap.add_argument("--proof-dir", default=None,
-                    help="the prover service (not ported yet)")
+                    help="run the crash-safe prover service and stream "
+                         "proof_NNNNNN.bin + vk.bin into this directory "
+                         "(training never blocks)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)

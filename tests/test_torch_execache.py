@@ -3,8 +3,9 @@
 The counters carry the reference's names (`repro.core.execache.stats`).
 A library's file name is a hash of its sources and nvcc flags: the same
 in every process, and changed by any edit of a source, the shared
-header or the flags.  A library file that fails to load is counted,
-deleted and rebuilt, never used.  Building and loading a kernel needs
+header or the flags.  A library file whose digest does not match the
+one written beside it, or that fails to load, is counted, deleted and
+rebuilt, never used.  Building and loading a kernel needs
 the card (tests/test_torch_gpu.py); nothing here calls nvcc.
 """
 import json
@@ -89,6 +90,39 @@ def test_corrupt_library_is_counted_deleted_and_rebuilt(tmp_path,
     assert s["disk_hits"] == 0 and s["misses"] == 0
     assert not any(p.exists() for p in paths)
     assert compiled                      # the rebuild was attempted
+
+
+def test_truncated_library_never_reaches_the_loader(tmp_path, monkeypatch):
+    """A library is loaded only when its SHA-256 matches the digest the
+    cache wrote beside it: a truncated one (the ``corrupt-cache`` fault)
+    is counted and deleted unloaded, since mapping it can kill the
+    process with SIGBUS instead of raising."""
+    import hashlib
+
+    from repro_torch.train.resilience import corrupt_exec_cache_entry
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "stats", dict.fromkeys(_build.stats, 0))
+    for n in _build.SOURCES:
+        p = _build._lib_path(n)
+        p.write_bytes(b"\x7fELF" + bytes(range(256)) * 4)
+        _build._digest_path(p).write_text(
+            hashlib.sha256(p.read_bytes()).hexdigest() + "\n")
+        assert _build._intact(p)
+    loaded = []
+    monkeypatch.setattr(_build, "_load",
+                        lambda p: loaded.append(p.name) or object())
+    bad = corrupt_exec_cache_entry()
+    assert not _build._intact(tmp_path / os.path.basename(bad))
+    monkeypatch.setattr(_build, "_nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build_all()
+    s = execache.stats()
+    assert s["disk_corrupt"] == 1 and s["disk_hits"] == len(_build.SOURCES) - 1
+    assert os.path.basename(bad) not in loaded
+    assert not os.path.exists(bad)
 
 
 def test_warm_returns_stats_delta_on_cpu():

@@ -178,3 +178,82 @@ def test_fresh_process_builds_no_kernel(dev):
     stats = json.loads(res.stdout.strip().splitlines()[-1])
     assert stats["misses"] == 0 and stats["disk_writes"] == 0, stats
     assert stats["disk_hits"] == len(_build.SOURCES) and stats["hits"] == 1
+
+
+def _small_witness(dev, seed=3):
+    from repro_torch.core.quantfc import (QuantConfig,
+                                          synthetic_sgd_trajectory_widths)
+    return synthetic_sgd_trajectory_widths(1, (4, 4, 4), 2,
+                                           QuantConfig(16, 4), seed=seed,
+                                           device=dev)[0]
+
+
+def test_journal_round_trip_of_card_tensors(dev, tmp_path):
+    """A witness on the card journals to the host npz layout and loads
+    back onto the card tensor-equal (and onto the CPU the same)."""
+    from repro_torch.launch import serve
+
+    wit = _small_witness(dev)
+    serve.journal_append(str(tmp_path), 0, wit)
+    back = serve.journal_load(str(tmp_path), 0, dev)
+    host = serve.journal_load(str(tmp_path), 0, "cpu")
+    assert back.x.is_cuda and not host.x.is_cuda
+    for name in ("x", "y"):
+        assert torch.equal(getattr(back, name), getattr(wit, name))
+    for name in serve._WIT_LISTS:
+        for got, cpu, want in zip(getattr(back, name), getattr(host, name),
+                                  getattr(wit, name)):
+            assert got.is_cuda and torch.equal(got, want)
+            assert torch.equal(cpu, want.cpu())
+
+
+def test_preflight_on_card_tensors(dev):
+    """`validate_witness` checks a card witness on the card, and rejects a
+    broken eq. (3) decomposition with the reference's message."""
+    import dataclasses
+
+    from repro_torch.core.pipeline import build_fcnn_graph
+    from repro_torch.core.pipeline.config import PipelineConfig
+    from repro_torch.launch.preflight import (WitnessRangeError,
+                                              validate_witness)
+
+    cfg = PipelineConfig.from_graph(build_fcnn_graph((4, 4, 4), 2),
+                                    q_bits=16, r_bits=4, n_steps=1)
+    wit = _small_witness(dev)
+    assert validate_witness(cfg, wit) is None
+    z0 = wit.z[0].clone()
+    z0[0, 0] += 1
+    bad = dataclasses.replace(wit, z=[z0] + list(wit.z[1:]))
+    with pytest.raises(WitnessRangeError, match="eq. 3"):
+        validate_witness(cfg, bad)
+
+
+def test_corrupt_cache_entry_is_rebuilt(dev):
+    """The ``corrupt-cache`` fault truncates a built library (by rename,
+    so this process keeps its mapping); a fresh process counts it
+    (disk_corrupt), deletes it, rebuilds it, and its kernel runs."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.kernels import _build
+    from repro_torch.train.resilience import corrupt_exec_cache_entry
+
+    _build.build_all()
+    path = corrupt_exec_cache_entry()
+    assert path is not None and path.endswith(".so")
+    name = os.path.basename(path).split("-")[0]
+    code = ("import json, torch; from repro_torch.core import execache; "
+            "from repro_torch.kernels import _build; _build.build_all(); "
+            "print(json.dumps(execache.stats()))")
+    src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+    res = subprocess.run([sys.executable, "-c", code], check=True,
+                         env=dict(os.environ, PYTHONPATH=src),
+                         capture_output=True, text=True, timeout=600)
+    stats = json.loads(res.stdout.strip().splitlines()[-1])
+    assert stats["disk_corrupt"] == 1 and stats["misses"] == 1, stats
+    assert stats["disk_hits"] == len(_build.SOURCES) - 1, stats
+    assert os.path.getsize(path) > 0 and name in _build.SOURCES
+    a, b = _field(FQ, 257, 5, dev), _field(FQ, 257, 6, dev)
+    assert torch.equal(mk.modmul(FQ, a, b), mk.modmul_plain(FQ, a, b))

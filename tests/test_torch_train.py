@@ -72,9 +72,44 @@ def test_trainer_reproduces_reference_window_proofs(hooks, case, capsys):
 def test_trainer_exits_on_unported_paths():
     base = ["--device", "cpu", "--steps", "1"]
     with pytest.raises(SystemExit, match="ROADMAP.md"):
-        train.main(base + ["--arch", "fcnn-zkdl-16l", "--proof-dir", "out"])
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
         train.main(base + ["--arch", "qwen3-0.6b"])
+
+
+# sha256 of the files the reference trainer's prover service wrote,
+# recorded as above from `repro.launch.train.main` with
+# ARGV["uniform"] + ["--proof-dir", <dir>]
+REFERENCE_PROOF_DIR_SHA256 = {
+    "proof_000000.bin":
+        "236b0734ed48c3c8d21078e85bc4df886d060a78169565ba5e48dc9f80e79130",
+    "proof_000001.bin":
+        "969cc30d25e7320dbc807127f9d2d0ef879838c5dd2dff39515792308e07cad4",
+    "vk.bin":
+        "f0df597e6a37d443889b3b87c10536aac0c2e2216047af6d4f26bd6bf5338a6e",
+}
+
+
+def test_trainer_proof_dir_streams_the_reference_service_proofs(tmp_path,
+                                                                capsys):
+    """``--proof-dir`` hands every step to the port's ProverService (warm
+    at start, journaled submits, one committed proof per window): the
+    files are the reference service's, and nothing is left journaled."""
+    import json
+
+    from repro_torch.launch import serve
+
+    argv = ["--device", "cpu", "--arch", "fcnn-zkdl-16l", *ARGV["uniform"],
+            "--proof-dir", str(tmp_path)]
+    assert train.main(argv) == 0
+    for name, digest in REFERENCE_PROOF_DIR_SHA256.items():
+        with open(tmp_path / name, "rb") as f:
+            assert hashlib.sha256(f.read()).hexdigest() == digest, name
+    assert serve.manifest_commit_counts(str(tmp_path)) == {0: 1, 1: 1}
+    assert serve.journal_steps(serve.journal_dir(str(tmp_path))) == []
+    with open(tmp_path / serve.MANIFEST) as f:
+        assert [json.loads(ln)["samples"] for ln in f] == [[0, 4], [4, 4]]
+    out = capsys.readouterr().out
+    assert "prover service warm" in out
+    assert out.count("verified=True") == 2
 
 
 def test_residual_operand_witness_matches_reference():
