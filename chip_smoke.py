@@ -51,7 +51,27 @@ Phases, each printing one JSON line:
    --proof-dir`` at d-model 256.  Exactly one COMMITTED line per
    window, every proof read back from disk verified, no journal left;
    it prints warm, submit, commit, child and memory numbers beside the
-   card's name and power limit.
+   card's name and power limit;
+9. lm: the LM trainer and model zoo on the card.  (a) qwen3-0.6b at
+   full width and depth (28 x 1024), seq 512, batch 8, 8 steps through
+   `repro_torch.launch.train.main`: finite losses and grad norms, the
+   first loss within 0.5 of ln(vocab); median step seconds, tokens/s,
+   peak GB and the model-FLOP share of the bf16 dense peak; (b) depth 2,
+   ``--compress int8 --ckpt-every 3 --fail-at 5`` under deterministic
+   algorithms resumes at step 4 and reproduces the uninterrupted run's
+   losses of steps 5-7 bit for bit (checkpoints under build/lm, save
+   seconds and bytes printed); (c) width 1024, depth 2, float32, three
+   AdamW steps on the card and on the CPU from one init; (d) every LM
+   arch's smoke config: finite forward, grad and decode step, float32
+   against the CPU; (e) full qwen3-0.6b: prefill 256 tokens, 8 greedy
+   decode steps, each against a full forward, in float32 (1e-4 of the
+   largest logit) and in bf16 (three times the bf16 forward's own
+   error), greedy tokens equal, and a planted off-by-one position that
+   the float32 leg must catch; (f) blockwise against
+   dense attention at S = 4096 in float32, then one forward and
+   backward pass at seq 4096.  Phase golden also proves the standalone
+   validity IPA (`zkrelu.prove_validity`) on the card and compares it
+   with the reference's recorded proof.
 
 Phase 1 also starts a fresh interpreter that calls one kernel: it must
 report no compile (`repro_torch.core.execache.stats()`).
@@ -104,6 +124,26 @@ OPEN_N = 1 << 20
 # is 2^28 words (2 GiB) each and 38.7 GB above the baseline at the first
 # round's peak on an H100 80GB, the largest power of two under half of it
 AUDIT_SCBD_D = 1 << 12
+
+
+# the standalone validity IPA (zkrelu.prove_validity) at DS = 8, Q = 8,
+# R = 4 on the inputs of tests/test_torch_names.py (aux from
+# default_rng(42)): the reference's commitments and proof, recorded once
+VALIDITY_GOLDEN = {
+    "coms": [3321668103897975935, 555965426435947559, 2789400395302629123,
+             1254621978059809875],
+    "ls": [2306671581511745815, 1746866287729908800, 4003374391151768675,
+           4118535930058955682, 1754789279930431751, 1709501324969216675,
+           2046351410251543085, 2544941545633683185],
+    "rs": [4101627363386275095, 43585147357973719, 2487749357538791666,
+           3249122387236444170, 2659917825134582638, 2486056974847485526,
+           1924407162189139418, 930587536014344940],
+    "sigma": [3649441468035683311, 919579863347573057, 2139500555648496446,
+              870963889621916627, 1813593952376246272]}
+# phase lm: qwen3-0.6b (src/repro/configs/qwen3_0p6b.py) at full width
+# and depth, the reference trainer's default seq and batch
+LM_ARCH, LM_SEQ, LM_BATCH, LM_STEPS = "qwen3-0.6b", 512, 8, 8
+BF16_DENSE_FLOPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 
 
 def emit(obj) -> None:
@@ -605,7 +645,56 @@ def phase_golden(state) -> dict:
         out[f"T{T}"] = {"sha256": digest, "golden": digest == GOLDEN_SHA256[T],
                         "verified": verified}
         ok &= digest == GOLDEN_SHA256[T] and verified
-    return {"golden": out, "_ok": ok}
+    val = _validity_golden()
+    ok &= val["equal_to_reference"] and val["verified"]
+    return {"golden": out, "validity": val, "_ok": ok}
+
+
+def _validity_golden(dev: str = "cuda") -> dict:
+    """`zkrelu.prove_validity` / `verify_validity` on the card (through
+    the existing kernels): the proof must equal the reference's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import mle, zkrelu
+    from repro_torch.core.transcript import Transcript
+    from repro_torch.field import FQ
+
+    q, ds, qb, rb = FQ.modulus, 8, 8, 4
+    rng = np.random.default_rng(42)
+    lim = 1 << (qb - 1)
+    aux = [rng.integers(0, lim, size=ds), rng.integers(-lim, lim, size=ds),
+           rng.integers(0, 2, size=ds), rng.integers(0, 1 << rb, size=ds),
+           rng.integers(0, 1 << rb, size=ds)]
+    keys = zkrelu.make_validity_keys(ds, qb, rb, dev)
+    bits = zkrelu.build_aux_bits(*[torch.as_tensor(a, dtype=torch.int64,
+                                                   device=dev)
+                                   for a in aux], qb, rb)
+    coms, blinds = zkrelu.commit_validity(keys, bits, rng)
+    com_list = [coms.com_b_ip, coms.com_bq1, coms.com_bq1p, coms.com_br_ip]
+
+    def transcript():
+        t = Transcript(b"zkrelu-test")
+        t.absorb_ints(b"coms", com_list)
+        u = t.challenge_ints(b"urelu", q, 4)
+        e = mle.hexpand_point(u[:-1])
+        ev = [sum(int(a[i]) % q * e[i] for i in range(ds)) % q for a in aux]
+        claims = [((1 - u[-1]) * ev[0] + u[-1] * ev[1]) % q, ev[2],
+                  ((1 - u[-1]) * ev[3] + u[-1] * ev[4]) % q]
+        t.absorb_ints(b"claims", claims)
+        return t, u, claims
+
+    t0 = time.perf_counter()
+    tp, u_relu, (v, vq1, vr) = transcript()
+    proof = zkrelu.prove_validity(keys, bits, blinds, u_relu, v, vq1, vr,
+                                  tp, rng)
+    tv, _, _ = transcript()
+    verified = zkrelu.verify_validity(keys, coms, v, vq1, vr, u_relu, proof,
+                                      tv)
+    got = {"coms": com_list, "ls": proof.ls, "rs": proof.rs,
+           "sigma": proof.sigma}
+    return {"equal_to_reference": got == VALIDITY_GOLDEN,
+            "verified": bool(verified),
+            "seconds": time.perf_counter() - t0}
 
 
 def _prove_again(pk, wit, profile: bool):
@@ -628,6 +717,14 @@ def _prove_again(pk, wit, profile: bool):
         t0 = time.perf_counter()
         raw = encode_proof(session.prove())
         wall = time.perf_counter() - t0
+    return raw, wall, _device_profile(prof, wall)
+
+
+def _device_profile(prof, wall: float) -> dict:
+    """The top device kernels of a torch.profiler run and the share of
+    ``wall`` seconds the card was busy."""
+    import torch
+
     rows = []
     busy_us = 0.0
     for ev in prof.key_averages():
@@ -640,9 +737,8 @@ def _prove_again(pk, wit, profile: bool):
     rows.sort(reverse=True)
     top = [{"kernel": k[:90], "device_ms": us / 1e3, "calls": c}
            for us, k, c in rows[:15]]
-    return raw, wall, {"wall_s": wall, "device_busy_s": busy_us / 1e6,
-                       "device_busy_share": busy_us / 1e6 / wall,
-                       "top_kernels": top}
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall, "top_kernels": top}
 
 
 def _full_witness(width: int, seed: int, qc, dev):
@@ -1502,6 +1598,472 @@ def phase_serve(state, width: int) -> dict:
             "seconds_by_part": t, **parts, "launches": counts, "_ok": ok}
 
 
+def _lm_main(argv, out: str) -> list:
+    """`repro_torch.launch.train.main(argv)`; its per-step JSON records."""
+    from repro_torch.launch import train
+
+    if os.path.exists(out):
+        os.remove(out)
+    rc = train.main(argv + ["--metrics-out", out, "--log-every", "4"])
+    if rc != 0:
+        raise RuntimeError(f"train.main returned {rc}")
+    with open(out) as f:
+        return [json.loads(line) for line in f]
+
+
+def _finite(recs) -> bool:
+    import math
+    return all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in recs)
+
+
+def _lm_full(work: str, dev) -> dict:
+    """(a) qwen3-0.6b at full width and depth through the trainer."""
+    import math
+    import statistics
+
+    import torch
+    from repro_torch.configs.registry import get_config
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # earlier phases' tensors
+    recs = _lm_main(["--arch", LM_ARCH, "--steps", str(LM_STEPS), "--seq",
+                     str(LM_SEQ), "--global-batch", str(LM_BATCH)],
+                    os.path.join(work, "full.jsonl"))
+    cfg = get_config(LM_ARCH)
+    tokens = LM_SEQ * LM_BATCH
+    step_s = statistics.median(r["seconds"] for r in recs[1:])
+    flops = 6 * cfg.param_count() * tokens
+    first = recs[0]["loss"]
+    ok = (len(recs) == LM_STEPS and _finite(recs)
+          and abs(first - math.log(cfg.vocab)) < 0.5)
+    return {"layers": cfg.n_layers, "d_model": cfg.d_model,
+            "params": cfg.param_count(), "losses": [r["loss"] for r in recs],
+            "grad_norms": [r["grad_norm"] for r in recs],
+            "step_s": [r["seconds"] for r in recs],
+            "median_step_s_after_0": step_s, "tokens_per_s": tokens / step_s,
+            "peak_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+            "held_before_gb": held / 1e9,
+            "model_flops_per_step": flops,
+            "model_flop_share": flops / step_s / BF16_DENSE_FLOPS_PER_S,
+            "_ok": ok}
+
+
+def _lm_profile(dev) -> dict:
+    """One train step of (a)'s geometry under torch.profiler, after one
+    warm-up step: device time by kernel and the card's busy share."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import steps, train
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    cfg = get_config(LM_ARCH)
+    opt_cfg = steps.default_opt_cfg(cfg)
+    state, _ = train.build_state(cfg, opt_cfg, device=dev)
+    step = steps.build_train_step(cfg, opt_cfg)
+    source = SyntheticTokens(cfg, LM_SEQ, LM_BATCH)
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in source.batch(i).items()} for i in range(2)]
+    state, m = step(state, batches[0])
+    float(m["loss"])
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batches[1])
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    return _device_profile(prof, wall)
+
+
+def _lm_restart(work: str) -> dict:
+    """(b) a --fail-at run resumes at its checkpoint with the
+    uninterrupted run's losses, bit for bit (deterministic algorithms)."""
+    import shutil
+
+    import torch
+
+    ckpt = os.path.join(work, "ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", LM_ARCH, "--layers", "2", "--steps", "8", "--seq",
+            str(LM_SEQ), "--global-batch", str(LM_BATCH), "--compress",
+            "int8"]
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = _lm_main(argv, os.path.join(work, "plain.jsonl"))
+        failed = _lm_main(argv + ["--ckpt-dir", ckpt, "--ckpt-every", "3",
+                                  "--fail-at", "5"],
+                          os.path.join(work, "failed.jsonl"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    steps = [r["step"] for r in failed]
+    resumed_at = next((b for a, b in zip(steps, steps[1:]) if b <= a), None)
+    after = {r["step"]: r["loss"] for r in failed}      # the last of each
+    saves = [(r["step"], r["ckpt_seconds"], r["ckpt_bytes"])
+             for r in failed if "ckpt_bytes" in r]
+    equal = all(after[s] == plain[s]["loss"] for s in (5, 6, 7))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"steps_run": steps, "resumed_at": resumed_at,
+            "losses_plain": [r["loss"] for r in plain],
+            "losses_resumed": [after[s] for s in range(8)],
+            "bit_equal_5_to_7": equal, "saves": saves,
+            "fs": _fs_type(work),
+            "_ok": resumed_at == 4 and equal and _finite(failed)}
+
+
+def _float32_exact():
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def _rel_err(got, want) -> float:
+    want = want.detach().float().cpu()
+    err = (got.detach().float().cpu() - want).abs().max()
+    return float(err / want.abs().max().clamp(min=1e-30))
+
+
+def _lm_card_vs_cpu(dev) -> dict:
+    """(c) three AdamW steps at width 1024, depth 2, float32, from one
+    init on the card and on the CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import steps, train
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2,
+                              dtype="float32")
+    opt_cfg = steps.default_opt_cfg(cfg)
+    state, _ = train.build_state(cfg, opt_cfg, device="cpu")
+    card = tree_map(lambda t: t.to(dev), state)
+    step = steps.build_train_step(cfg, opt_cfg)
+    source = SyntheticTokens(cfg, 64, 2)
+    losses = {"cpu": [], "card": []}
+    t0 = time.perf_counter()
+    for i in range(3):
+        batch = {k: torch.as_tensor(v) for k, v in source.batch(i).items()}
+        state, m = step(state, batch)
+        losses["cpu"].append(float(m["loss"]))
+        card, m = step(card, {k: v.to(dev) for k, v in batch.items()})
+        losses["card"].append(float(m["loss"]))
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree_leaves(card["params"]), tree_leaves(state["params"])))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                   losses["cpu"]))
+    # each AdamW step moves a weight by at most about lr (<= 9e-6 here,
+    # in warm-up): a direction flipped by rounding moves it by 2 lr
+    return {"losses": losses, "loss_max_rel": rel,
+            "params_max_abs_err": err, "params_tol": 2e-5,
+            "seconds": time.perf_counter() - t0,
+            "_ok": rel <= 1e-4 and err <= 2e-5}
+
+
+def _lm_archs(dev) -> dict:
+    """(d) every LM arch's smoke config: finite forward, grad and decode
+    step on the card, and the float32 run against the CPU's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import ARCHS, smoke_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tt
+    from repro_torch.tree import tree_leaves, tree_map
+
+    out, ok = {}, True
+    for arch in ARCHS:
+        if arch == "fcnn_zkdl_16l":
+            continue
+        rec = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
+            params = tt.init_params(cfg, torch.Generator().manual_seed(0))
+            batch = {k: torch.as_tensor(v) for k, v in SyntheticTokens(
+                cfg, 32, 2, seed=1).batch(0).items()}
+            on = {"cpu": (params, batch, "cpu"),
+                  "card": (tree_map(lambda t: t.to(dev), params),
+                           {k: v.to(dev) for k, v in batch.items()}, dev)}
+            res = {}
+            for where, (p, b, d) in on.items():
+                if dtype == "bfloat16" and where == "cpu":
+                    continue
+                with torch.no_grad():
+                    logits, _ = tt.forward(cfg, p, b)
+                loss, grads = steps.value_and_grad(cfg, p, b)
+                cache = tt.make_cache(cfg, 2, 32, d)
+                if cfg.family == "encdec":
+                    tok = b["tokens"][:, 0]
+                elif cfg.family == "vlm":
+                    tok = b["embeds"][:, :1]
+                else:
+                    tok = b["tokens"][:, 0]
+                pos3 = (b["positions3"][:, :, :1] if cfg.family == "vlm"
+                        else None)
+                with torch.no_grad():
+                    dec, _ = tt.decode_step(cfg, p, cache, tok, 0,
+                                            positions3=pos3)
+                res[where] = (logits, loss, grads, dec)
+            lg, loss, grads, dec = res["card"]
+            finite = (bool(torch.isfinite(lg.float()).all())
+                      and bool(torch.isfinite(loss))
+                      and all(bool(torch.isfinite(g.float()).all())
+                              for g in tree_leaves(grads))
+                      and bool(torch.isfinite(dec.float()).all()))
+            rec[f"{dtype}_finite"] = finite
+            ok &= finite
+            if dtype == "float32":
+                c = res["cpu"]
+                rec["logits_rel"] = _rel_err(lg, c[0])
+                rec["loss_rel"] = abs(float(loss) - float(c[1])) / float(c[1])
+                rec["grad_rel"] = max(_rel_err(g, h) for g, h in zip(
+                    tree_leaves(grads), tree_leaves(c[2])))
+                rec["decode_rel"] = _rel_err(dec, c[3])
+                ok &= (rec["logits_rel"] <= 1e-4 and rec["loss_rel"] <= 1e-5
+                       and rec["grad_rel"] <= 1e-3
+                       and rec["decode_rel"] <= 1e-4)
+        out[arch] = rec
+    return {"archs": out, "tolerance": {"logits_rel": 1e-4, "loss_rel": 1e-5,
+                                        "grad_rel": 1e-3, "decode_rel": 1e-4},
+            "_ok": ok}
+
+
+def _lm_serve(dev, params) -> dict:
+    """(e) prefill 256 tokens at full qwen3-0.6b, then 8 greedy decode
+    steps, each against a full forward over the extended sequence, in
+    two legs on one token chain (the float32 leg's greedy tokens).
+
+    float32 (full matmul precision): |decode - full| <= 1e-4 of
+    max|full| at every step, greedy tokens equal.  bfloat16: the
+    tolerance is measured, not assumed: each step's float32 forward
+    gives the bf16 full forward's own rounding error, and the decode
+    step (a bf16 cache, one query row, other matmul shapes) must stay
+    within three times it of the bf16 full forward; greedy tokens equal
+    unless the full forward's top two logits lie within twice the
+    decode error.  A planted fault shows what each leg can see: at step
+    0 the same decode at position + 1 (the key written one slot late,
+    every rotation one step off) must fail the float32 tolerance; its
+    distance from the bf16 band is recorded."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tt
+
+    _float32_exact()
+    cfgs = {"f32": dataclasses.replace(get_config(LM_ARCH), dtype="float32"),
+            "bf16": get_config(LM_ARCH)}
+    n_prompt, n_new = 256, 8
+    prompt = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfgs["bf16"].vocab, (1, n_prompt)), dtype=torch.int32, device=dev)
+    legs = {}
+    for leg, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        last, (k, v) = steps.build_prefill_step(cfg)(params,
+                                                     {"tokens": prompt})
+        torch.cuda.synchronize()
+        cache = tt.make_cache(cfg, 1, n_prompt + n_new, dev)
+        cache["k"][:, :, :n_prompt] = k
+        cache["v"][:, :, :n_prompt] = v
+        legs[leg] = {"cfg": cfg, "decode": steps.build_decode_step(cfg),
+                     "cache": cache, "last": last,
+                     "prefill_s": time.perf_counter() - t0,
+                     "decode_vs_full": [], "max_abs_full": [],
+                     "greedy_agrees": [], "top2_margin": [], "decode_s": []}
+    tokens = prompt
+    nxt = legs["f32"]["last"].argmax(-1).to(torch.int32)
+    bf16_own_err = []
+    for i in range(n_new):
+        tokens = torch.cat([tokens, nxt[:, None]], dim=1)
+        pos = n_prompt + i
+        full = {}
+        for leg, r in legs.items():
+            if i == 0:
+                wrong, _ = r["decode"](params, r["cache"], nxt, pos + 1)
+            t0 = time.perf_counter()
+            logits, r["cache"] = r["decode"](params, r["cache"], nxt, pos)
+            torch.cuda.synchronize()
+            r["decode_s"].append(time.perf_counter() - t0)
+            with torch.no_grad():
+                f, _ = tt.forward(r["cfg"], params, {"tokens": tokens},
+                                  head_last_only=True)
+            f = full[leg] = f[:, -1].float()
+            logits = r["last"] = logits.float()
+            top2 = f.topk(2, dim=-1).values
+            r["decode_vs_full"].append(float((logits - f).abs().max()))
+            r["max_abs_full"].append(float(f.abs().max()))
+            r["top2_margin"].append(float((top2[:, 0] - top2[:, 1]).min()))
+            r["greedy_agrees"].append(bool(
+                (logits.argmax(-1) == f.argmax(-1)).all()))
+            if i == 0:
+                r["planted_pos_plus_1_vs_full"] = float(
+                    (wrong.float() - f).abs().max())
+        bf16_own_err.append(float((full["bf16"] - full["f32"]).abs().max()))
+        nxt = legs["f32"]["last"].argmax(-1).to(torch.int32)
+    f32, bf16 = legs["f32"], legs["bf16"]
+    f32["tolerance"] = [1e-4 * m for m in f32["max_abs_full"]]
+    bf16["full_bf16_vs_f32"] = bf16_own_err
+    bf16["tolerance"] = [3 * e for e in bf16_own_err]
+
+    def greedy_ok(r):
+        return all(a or m <= 2 * d for a, m, d in zip(
+            r["greedy_agrees"], r["top2_margin"], r["decode_vs_full"]))
+
+    ok = (all(d <= t for d, t in zip(f32["decode_vs_full"],
+                                     f32["tolerance"]))
+          and all(d <= t for d, t in zip(bf16["decode_vs_full"],
+                                         bf16["tolerance"]))
+          and greedy_ok(f32) and greedy_ok(bf16)
+          and f32["planted_pos_plus_1_vs_full"] > f32["tolerance"][0])
+    for r in legs.values():
+        for key in ("cfg", "decode", "cache", "last"):
+            r.pop(key)
+    return {"prompt": n_prompt, "new_tokens": n_new,
+            "tolerance": {"f32": "max|decode - full| <= 1e-4 max|full|",
+                          "bf16": "max|decode - full| <= 3 max|full - f32|",
+                          "greedy": "argmax equal unless the top-2 margin "
+                                    "<= 2 max|decode - full|"},
+            "planted_fault_caught": {
+                "f32": f32["planted_pos_plus_1_vs_full"]
+                > f32["tolerance"][0],
+                "bf16": bf16["planted_pos_plus_1_vs_full"]
+                > bf16["tolerance"][0]},
+            "f32": f32, "bf16": bf16, "_ok": ok}
+
+
+def _lm_blockwise(dev, params) -> dict:
+    """(f) blockwise attention against dense `attention` math on one
+    layer's q/k/v at S = 4096 in float32; then one forward and backward
+    pass of the full config at seq 4096, batch 1."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as am
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.blockwise import blockwise_attention
+    from repro_torch.models.layers import apply_rope, rms_norm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    import numpy as np
+
+    cfg = get_config(LM_ARCH)
+    s = 4096
+    assert s > tt.DENSE_ATTN_MAX_SEQ
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, s)), dtype=torch.int32, device=dev)
+    blk = tree_map(lambda a: a[0], params["blocks"])
+    a = blk["attn"]
+    with torch.no_grad():
+        x = rms_norm(params["embed"][tokens.long()], blk["ln1"])
+        pos = torch.arange(s, device=dev)[None]
+        q = rms_norm((x @ a["wq"]).reshape(1, s, cfg.n_heads, cfg.head_dim),
+                     a["q_norm"])
+        k = rms_norm((x @ a["wk"]).reshape(1, s, cfg.n_kv_heads,
+                                           cfg.head_dim), a["k_norm"])
+        v = (x @ a["wv"]).reshape(1, s, cfg.n_kv_heads, cfg.head_dim)
+        q, k = apply_rope(q, pos, cfg.rope_theta), apply_rope(
+            k, pos, cfg.rope_theta)
+        blockwise = blockwise_attention(q, k, v, causal=True)
+        scores = am._gqa_scores(q, k, cfg)
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=dev))
+        scores = torch.where(mask[None, None, None], scores, am.NEG_INF)
+        dense = am._gqa_out(torch.softmax(scores, -1), v).reshape(
+            blockwise.shape)
+        err = float((blockwise - dense).abs().max())
+        del scores, mask, dense
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loss, grads = steps.value_and_grad(cfg, params, {"tokens": tokens,
+                                                     "labels": tokens})
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+    torch.cuda.synchronize()
+    return {"seq": s, "max_abs_err_vs_dense": err, "tolerance": 1e-4,
+            "fwd_bwd_s": time.perf_counter() - t0, "loss": float(loss),
+            "fwd_bwd_peak_gb": (torch.cuda.max_memory_allocated() - held)
+            / 1e9,
+            "_ok": err < 1e-4 and finite}
+
+
+def phase_lm(state, profile: bool = False) -> dict:
+    """The LM trainer and model zoo on the card (see the docstring)."""
+    import gc
+    import shutil
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tt
+
+    work = os.path.join(OUT_DIR, "lm")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dev = torch.device("cuda")
+    parts, t = {}, {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    runs = (("a_full", lambda: _lm_full(work, dev)),
+            ("b_restart", lambda: _lm_restart(work)),
+            ("c_card_vs_cpu", lambda: _lm_card_vs_cpu(dev)),
+            ("d_archs", lambda: _lm_archs(dev)),
+            ("e_serve", lambda: _lm_serve(dev, params)),
+            ("f_blockwise", lambda: _lm_blockwise(dev, params)))
+    if profile:
+        runs += (("profile", lambda: _lm_profile(dev)),)
+    params = None
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for name, fn in runs:
+            if name == "c_card_vs_cpu":
+                _float32_exact()
+            if name == "e_serve":
+                params = tt.init_params(get_config(LM_ARCH), gen)
+            t0 = time.perf_counter()
+            parts[name] = fn()
+            t[name] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    ok = all([p.pop("_ok", True) for p in parts.values()])
+    smi = state["smi"]
+    a, b, e = parts["a_full"], parts["b_restart"], parts["e_serve"]
+    e32, e16 = e["f32"], e["bf16"]
+    for line in (
+            f"qwen3-0.6b {a['layers']} layers x {a['d_model']}, seq "
+            f"{LM_SEQ}, batch {LM_BATCH}: median step "
+            f"{a['median_step_s_after_0']:.4f} s after step 0, "
+            f"{a['tokens_per_s']:.0f} tokens/s, peak {a['peak_gb']:.2f} GB "
+            f"above the {a['held_before_gb']:.2f} GB held before, "
+            f"model FLOP share {a['model_flop_share']:.4f} of bf16 dense; "
+            f"first loss {a['losses'][0]:.4f}",
+            f"restart: resumed at step {b['resumed_at']}, steps 5-7 "
+            f"bit-equal {b['bit_equal_5_to_7']}; checkpoint saves "
+            + ", ".join(f"step {s}: {n / 1e6:.0f} MB in {sec:.2f} s"
+                        for s, sec, n in b["saves"]) + f" ({b['fs']})",
+            f"decode: float32 max|decode - full| "
+            f"{max(e32['decode_vs_full']):.3g} (tolerance from "
+            f"{min(e32['tolerance']):.3g}), bf16 "
+            f"{max(e16['decode_vs_full']):.3g} (band from "
+            f"{min(e16['tolerance']):.3g}); planted position + 1: float32 "
+            f"{e32['planted_pos_plus_1_vs_full']:.3g}, bf16 "
+            f"{e16['planted_pos_plus_1_vs_full']:.3g} against the step-0 "
+            f"band {e16['tolerance'][0]:.3g}; greedy agrees "
+            f"{e32['greedy_agrees'].count(True)}/{len(e32['greedy_agrees'])}"
+            f" (f32), {e16['greedy_agrees'].count(True)}/"
+            f"{len(e16['greedy_agrees'])} (bf16)"):
+        print(f"lm: {line} [{smi}]", flush=True)
+    return {"arch": LM_ARCH, "seq": LM_SEQ, "batch": LM_BATCH,
+            "nvidia_smi": smi, "seconds_by_part": t, **parts, "_ok": ok}
+
+
 KERNEL_META = {
     "modmul": ("src/repro_torch/kernels/modmul/modmul.cu",
                "src/repro/kernels/modmul/kernel.py:50"),
@@ -1548,12 +2110,15 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=4096)
     ap.add_argument("--phases",
                     default="build,kernels,golden,full,train,open,audit,"
-                            "serve")
+                            "serve,lm")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the second full-width prove with "
+                    help="trace the second full-width prove (phase "
+                         "full) and one LM train step (phase lm) with "
                          "torch.profiler")
     args = ap.parse_args(argv)
 
+    # deterministic cuBLAS for phase lm's restart (set before any handle)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1579,6 +2144,7 @@ def main(argv=None) -> int:
         "open": lambda: phase_open(state),
         "audit": lambda: phase_audit(state, args.width),
         "serve": lambda: phase_serve(state, args.width),
+        "lm": lambda: phase_lm(state, args.profile),
     }
     failed, record = [], {}
     for name in phases:

@@ -20,7 +20,8 @@ import threading
 import numpy as np
 import torch
 
-from repro_torch.field import FP, FQ, decode, from_mont, mont_mul, pow_const
+from repro_torch.field import (FP, FQ, GROUP_GEN, decode, from_mont, mont_mul,
+                               pow_const)
 from repro_torch.kernels.generators import derive as _kernel_derive
 
 P = FP.modulus
@@ -277,6 +278,11 @@ def derive_generators(label: bytes, n: int, device) -> torch.Tensor:
         out = new if cached is None else torch.cat([cached, new])
         _GEN_CACHE[key] = out
         return out
+
+
+def group_gen(device) -> torch.Tensor:
+    """The canonical subgroup generator h = 4 in Montgomery form."""
+    return encode_group(GROUP_GEN, device)
 
 
 def decode_group(a: torch.Tensor) -> int:

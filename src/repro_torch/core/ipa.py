@@ -471,3 +471,20 @@ def pair_verify_many(stmts, proofs: List[IpaProof],
         sides.extend([lhs, rhs])
     flat = group.decode_group_many(torch.stack(sides))
     return all(flat[2 * i] == flat[2 * i + 1] for i in range(len(states)))
+
+
+def pair_prove(g_gens, h_gens, h_blind, a_mont, b_mont, blind: int,
+               claim: int, transcript: Transcript,
+               rng: np.random.Generator) -> IpaProof:
+    """Single-statement pair argument: `pair_prove_many` with S = 1,
+    which degenerates to the classic sequential schedule."""
+    (proof,) = pair_prove_many(
+        [(g_gens, h_gens, h_blind, a_mont, b_mont, blind, claim)],
+        transcript, rng)
+    return proof
+
+
+def pair_verify(g_gens, h_gens, h_blind, com, claim: int, proof: IpaProof,
+                transcript: Transcript, n: int) -> bool:
+    return pair_verify_many([(g_gens, h_gens, h_blind, com, claim, n)],
+                            [proof], transcript)

@@ -121,3 +121,13 @@ def lagrange_eval(ys, x):
             den = den * ((i - j) % Q) % Q
         acc = (acc + ys[i] * num % Q * hinv(den)) % Q
     return acc
+
+
+def eval_mle(table: torch.Tensor, point_ints) -> torch.Tensor:
+    """Evaluate the MLE of ``table`` at ``point`` (python ints,
+    little-endian): one fold per coordinate.  Returns a 0-d tensor."""
+    n = table.shape[0]
+    assert n == 1 << len(point_ints), (n, len(point_ints))
+    for r in point_ints:
+        table = fold(table, enc(r))
+    return table[0]

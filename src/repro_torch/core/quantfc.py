@@ -52,6 +52,11 @@ def quantize(x: np.ndarray, cfg: QuantConfig) -> np.ndarray:
     return np.clip(v, -lim, lim - 1)
 
 
+def dequantize(v: np.ndarray, cfg: QuantConfig) -> np.ndarray:
+    """Fixed-point int64 at scale 2^R -> float64 (host numpy)."""
+    return np.asarray(v).astype(np.float64) / cfg.scale
+
+
 def _int16_parts(x: torch.Tensor) -> List[torch.Tensor]:
     """x -> int16 parts summing to x exactly: x itself when it fits,
     else clamp(x) and the rest.  Raises when the rest does not fit

@@ -183,6 +183,10 @@ def verify(proof: ScbdProof, d: int, q_bits: int,
         return False
 
 
+def mle_host_expand(point: List[int]) -> List[int]:
+    return mle.hexpand_point(point)
+
+
 def workload_elems(d: int, q_bits: int) -> int:
     """Table elements the general-purpose prover materializes (per tensor)."""
     return d * d * q_bits

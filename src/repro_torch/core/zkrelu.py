@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.field import FQ, FP, batch_inv, from_mont, mont_mul
-from repro_torch.core import group
+from repro_torch.core import group, ipa
 from repro_torch.core.mle import enc, enc_vec, expand_point, hexpand_point
 from repro_torch.core.transcript import Transcript
 from repro_torch.kernels import validity_tables as vtab
@@ -426,3 +426,51 @@ def transform_commitment(keys: ValidityKeys, com_b_ip: int, com_bq1_ip: int,
         expo = (expo + z) % Q_MOD            # + (h^prod)^z folded per column
         com = group.g_mul(com, group.g_pow_int(colprods[j], expo))
     return com
+
+
+def prove_validity(keys: ValidityKeys, bits: AuxBits,
+                   blinds: ValidityBlinds, u_relu: List[int], v: int,
+                   v_q1: int, v_r: int, transcript: Transcript,
+                   rng) -> "ipa.IpaProof":
+    """Standalone validity of aux inputs: ONE merged pair IPA.
+
+    The main and remainder statements become disjoint slices of the
+    merged basis (G ++ G_R ++ pad); the remainder slice is lam-scaled so
+    claim monomials stay distinct (claim = c_main + lam^2 c_rem) and the
+    verifier can assemble the merged commitment as com_t * com_tr^lam.
+    The pipeline does the same fold with rho-powers inside its
+    direct-sum opening; this is the two-statement special case."""
+    st = prove_statements(keys, bits, blinds, u_relu, v, v_q1, v_r,
+                          transcript)
+    lam = transcript.challenge_int(b"zkrelu/lam", Q_MOD)
+    lam_m = enc(lam)
+    pad = keys.merged_len - keys.n_main - keys.n_rem
+    zeros = torch.zeros(pad, dtype=torch.int64, device=keys.device)
+    a = torch.cat([st.a_main, mont_mul(FQ, st.a_rem, lam_m), zeros])
+    b = torch.cat([st.b_main, mont_mul(FQ, st.b_rem, lam_m), zeros])
+    w = torch.cat([st.w_main, st.w_rem, torch.full_like(zeros, enc(1))])
+    claim = (st.claim_main + lam * lam % Q_MOD * st.claim_rem) % Q_MOD
+    blind = (st.blind_main + lam * st.blind_rem) % Q_MOD
+    if keys.merged_len <= POW_TABLE_MAX_ELEMS:
+        stmt = (keys.g_merged, None, keys.h_blind, a, b, blind, claim,
+                (keys.g_merged_table, keys.h_merged, keys.h_merged_table, w))
+    else:
+        hh = group.g_pow(keys.h_merged, from_mont(FQ, w))
+        stmt = (keys.g_merged, hh, keys.h_blind, a, b, blind, claim)
+    (proof,) = ipa.pair_prove_many([stmt], transcript, rng)
+    return proof
+
+
+def verify_validity(keys: ValidityKeys, coms: ValidityCommitments,
+                    v: int, v_q1: int, v_r: int, u_relu: List[int],
+                    proof: "ipa.IpaProof", transcript: Transcript) -> bool:
+    """Standalone verifier for the merged validity IPA."""
+    ctx = verify_statements(keys, coms, v, v_q1, v_r, u_relu, transcript)
+    lam = transcript.challenge_int(b"zkrelu/lam", Q_MOD)
+    com = group.g_mul(ctx.com_t, group.g_pow_int(ctx.com_tr, lam))
+    claim = (ctx.claim_main + lam * lam % Q_MOD * ctx.claim_rem) % Q_MOD
+    hh = torch.cat([ctx.h_prime_main, ctx.h_prime_rem,
+                    keys.h_merged[keys.n_main + keys.n_rem:]])
+    return ipa.pair_verify_many(
+        [(keys.g_merged, hh, keys.h_blind, com, claim, keys.merged_len)],
+        [proof], transcript)

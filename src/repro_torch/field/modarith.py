@@ -87,6 +87,32 @@ def limbs_to_words(limbs) -> np.ndarray:
     return words.astype(np.int64)
 
 
+def int_to_limbs(x: int) -> np.ndarray:
+    """Python int -> the reference's (4,) uint32 16-bit limb array."""
+    return np.array([(x >> (WORD * i)) & WMASK for i in range(NLIMB)],
+                    dtype=np.uint32)
+
+
+def ints_to_limbs(xs) -> np.ndarray:
+    """Python/numpy ints -> (..., 4) uint32 limb array: the low 64 bits
+    of each value (two's complement for a negative one), as the
+    reference packs them."""
+    arr = np.asarray(xs, dtype=object)
+    flat = arr.reshape(-1)
+    out = np.empty(flat.shape + (NLIMB,), dtype=np.uint32)
+    for j in range(NLIMB):
+        out[:, j] = ((flat >> (WORD * j)) & WMASK).astype(np.uint32)
+    return out.reshape(arr.shape + (NLIMB,))
+
+
+def limbs_to_ints(limbs) -> np.ndarray:
+    """(..., 4) uint32 limb array -> object array of python ints."""
+    limbs = np.asarray(limbs)
+    words = limbs_to_words(limbs).astype(np.uint64)
+    return np.array([int(w) for w in words.reshape(-1)],
+                    dtype=object).reshape(limbs.shape[:-1])
+
+
 def words_to_limbs(words) -> np.ndarray:
     """(...) int64 words -> (..., 4) uint32 16-bit limbs."""
     u = np.asarray(words).astype(np.uint64)
@@ -153,6 +179,19 @@ def add(spec: FieldSpec, a: torch.Tensor, b) -> torch.Tensor:
 def sub(spec: FieldSpec, a, b) -> torch.Tensor:
     d = a - b
     return torch.where(d < 0, d + spec.modulus, d)
+
+
+def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    return sub(spec, torch.zeros_like(a), a)
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    """Elementwise: one word per element, so no limb axis to reduce."""
+    return a == 0
+
+
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a == b
 
 
 def pow_const(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
@@ -237,6 +276,28 @@ def decode(spec: FieldSpec, a: torch.Tensor) -> np.ndarray:
     """Montgomery tensor -> object array of canonical python ints (host)."""
     std = from_mont(spec, a).cpu().numpy()
     return np.array(std.tolist(), dtype=object).reshape(std.shape)
+
+
+def decode_centered(spec: FieldSpec, a: torch.Tensor) -> np.ndarray:
+    """Decode to signed representatives in (-m/2, m/2]."""
+    vals = decode(spec, a)
+    m = spec.modulus
+    flat = vals.reshape(-1)
+    for i in range(flat.shape[0]):
+        if flat[i] > m // 2:
+            flat[i] -= m
+    return vals
+
+
+def rand_elements(spec: FieldSpec, rng: np.random.Generator, shape,
+                  device="cpu") -> torch.Tensor:
+    """Uniform field elements in Montgomery form, drawn on the host in
+    the reference's order (one ``rng.integers`` per element)."""
+    n = int(np.prod(shape)) if shape else 1
+    vals = [int(rng.integers(0, spec.modulus, dtype=np.uint64)) % spec.modulus
+            for _ in range(n)]
+    return encode_ints(spec, np.array(vals, dtype=object).reshape(shape),
+                       device=device)
 
 
 def hash_to_int(data: bytes, modulus: int) -> int:

@@ -1,16 +1,21 @@
-"""Prove-while-train steps for provable integer-SGD families.
+"""Train / prefill / decode steps (the reference's `repro.launch.steps`).
 
-The zkDL part of the reference's `repro.launch.steps`: the layer-graph
+Two halves.  For provable integer-SGD families: the layer-graph
 pipeline config of a model config, the exact integer SGD step that
 yields each batch's witness, and the hook that proves (and verifies)
-one aggregated proof per window.  The reference's JAX model steps are
-ROADMAP.md queue 1, item 16.
+one aggregated proof per window.  For the LM families: the AdamW train
+step, the prefill and decode steps and the state's shapes, on one
+device.  The reference's mesh pieces (`state_shardings`, `lower_cell`)
+wait for the port's mesh code (ROADMAP.md queue 1, item F).
 """
 from __future__ import annotations
 
 import time
 
+import torch
+
 from repro_torch._device import resolve_device
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 def build_proof_pipeline_config(model_cfg, batch: int, n_steps: int,
@@ -86,3 +91,74 @@ class ZkdlProveHook:
         if self.on_proof is not None:
             self.on_proof(step, proof, dt)
         self._session = self._mk()
+
+
+# ---------------------------------------------------------------------------
+# LM families
+# ---------------------------------------------------------------------------
+
+def value_and_grad(cfg, params, batch):
+    """(loss, grads): the loss of ``params`` on ``batch`` and its
+    gradient tree, from detached copies of the leaves (the caller's
+    tree is not touched)."""
+    from repro_torch.models import transformer
+
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    live = tree_unflatten(params, leaves)
+    loss = transformer.loss_fn(cfg, live, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def build_train_step(cfg, opt_cfg):
+    """``train_step(state, batch) -> (new_state, metrics)`` for state
+    ``{"params", "opt"}``: one AdamW step on the loss's gradient."""
+    from repro_torch.train import optim
+
+    def train_step(state, batch):
+        loss, grads = value_and_grad(cfg, state["params"], batch)
+        new_params, new_opt, metrics = optim.apply_updates(
+            opt_cfg, state["params"], grads, state["opt"])
+        metrics["loss"] = loss
+        return {"params": new_params, "opt": new_opt}, metrics
+    return train_step
+
+
+def build_prefill_step(cfg):
+    from repro_torch.models import transformer
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        logits, caches = transformer.forward(cfg, params, batch,
+                                             collect_cache=True,
+                                             head_last_only=True)
+        return logits[:, -1], caches
+    return prefill_step
+
+
+def build_decode_step(cfg):
+    from repro_torch.models import transformer
+
+    @torch.no_grad()
+    def decode_step(params, cache, token, pos, positions3=None):
+        return transformer.decode_step(cfg, params, cache, token, pos,
+                                       positions3=positions3)
+    return decode_step
+
+
+def default_opt_cfg(cfg):
+    """bf16 Adam moments for >=100B-param models."""
+    from repro_torch.train import optim
+
+    big = cfg.param_count() > 100e9
+    return optim.AdamWConfig(state_dtype="bfloat16" if big else "float32")
+
+
+def state_specs(cfg, opt_cfg):
+    """The train state's tree with every leaf on the ``meta`` device:
+    shapes and dtypes, no memory."""
+    from repro_torch.models import transformer
+    from repro_torch.train import optim
+
+    p = transformer.init_params(cfg, torch.device("meta"))
+    return {"params": p, "opt": optim.init_opt_state(p, opt_cfg)}

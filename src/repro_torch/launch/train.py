@@ -1,27 +1,40 @@
-"""Prove-while-train entry point for provable integer-SGD families.
+"""Training entry point of the port: the LM families and prove-while-train.
+
+    python -m repro_torch.launch.train --arch qwen3-0.6b --steps 100 \
+        --seq 512 --global-batch 8 [--ckpt-dir D --ckpt-every 20] \
+        [--compress int8|topk] [--fail-at 37] [--resume] [--device cpu]
+    python -m repro_torch.launch.train --arch qwen3-0.6b --layers 2 \
+        --d-model 64 --device cpu --steps 4 --seq 32 --global-batch 2
+
+An LM family (dense, moe, ssm, hybrid, encdec, vlm) trains with AdamW
+on the reference's synthetic token stream, with gradient compression,
+periodic checkpoints, restart from the latest one after a failure
+(``--fail-at`` injects one) and straggler monitoring: the reference's
+`repro.launch.train` loop on one device, with its flags and log lines.
+``--mesh`` takes only the one-device ``1x1``: meshes are ROADMAP.md
+queue 1, item F.
 
     python -m repro_torch.launch.train --arch fcnn-zkdl-16l \
         --layers 2 --d-model 8 --global-batch 4 --steps 8 \
         --prove-window 4 [--widths 16,8,4,2] [--no-verify] [--device cpu]
 
-One aggregated proof per ``--prove-window`` steps over the family's
-layer graph, as the reference's `repro.launch.train.run_zkdl_train`:
-weights and data are drawn from the same seeded numpy stream in the same
-order, and that stream then feeds every window's blinds, so the proofs
-are byte-identical to the reference's.  Without overrides this is the
-paper-scale 16 x 4096 network.  Runs on the card unless ``--device cpu``.
-
+A provable family proves while it trains: one aggregated proof per
+``--prove-window`` steps over the family's layer graph, as the
+reference's `run_zkdl_train`: weights and data are drawn from the same
+seeded numpy stream in the same order, and that stream then feeds every
+window's blinds, so the proofs are byte-identical to the reference's.
 With ``--proof-dir`` the crash-safe prover service
-(`repro_torch.launch.serve.ProverService`) takes over, as in the
-reference: setup warms every kernel with a throwaway window, training
-never blocks on proving (each step witness is journaled and queued),
-and each window's proof streams to ``proof_NNNNNN.bin`` beside a
-serialized ``vk.bin``.  The reference's other model families are not
-ported yet (ROADMAP.md queue 1, item 16).
+(`repro_torch.launch.serve.ProverService`) takes over: setup warms every
+kernel with a throwaway window, training never blocks on proving, and
+each window's proof streams to ``proof_NNNNNN.bin`` beside a serialized
+``vk.bin``.  Everything runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import os
 import time
 
 import numpy as np
@@ -116,15 +129,166 @@ def run_zkdl_train(cfg, args) -> int:
     return 0
 
 
+def parse_mesh(spec: str):
+    """``DxM`` or ``PxDxM`` -> the shape tuple.  The port runs on one
+    device, so every axis must be 1."""
+    try:
+        dims = tuple(int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        dims = ()
+    if len(dims) not in (2, 3):
+        raise SystemExit(f"bad --mesh {spec!r} (want DxM or PxDxM)")
+    if any(d != 1 for d in dims):
+        raise SystemExit(f"--mesh {spec}: the port trains on one device "
+                         "(1x1); meshes are ROADMAP.md queue 1, item F")
+    return dims
+
+
+def build_state(cfg, opt_cfg, mesh=(1, 1), rng_seed: int = 0, device=None):
+    """Fresh train state ``{"params", "opt"}`` on ``device`` (default: the
+    card), drawn from a generator seeded with ``rng_seed``; also returns
+    the state's shapes (`steps.state_specs`)."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import transformer
+    from repro_torch.train import optim
+
+    del mesh                                   # one device (parse_mesh)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(rng_seed)
+    params = transformer.init_params(cfg, gen)
+    state = {"params": params, "opt": optim.init_opt_state(params, opt_cfg)}
+    return state, steps_mod.state_specs(cfg, opt_cfg)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def run_lm_train(cfg, args) -> int:
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.train import compression, optim, resilience
+
+    overrides = {}
+    if args.layers:
+        overrides["n_layers"] = args.layers
+        if cfg.family == "encdec":
+            overrides.update(enc_layers=args.layers, dec_layers=args.layers)
+    if args.d_model:
+        overrides["d_model"] = args.d_model
+        overrides["head_dim"] = 0
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+
+    mesh = parse_mesh(args.mesh)
+    dev = resolve_device(args.device)
+    opt_cfg = steps_mod.default_opt_cfg(cfg)
+    comp_cfg = compression.CompressionConfig(mode=args.compress)
+    source = pipeline.make_source(cfg, args.seq, args.global_batch)
+    print(f"[train] {cfg.name} ({cfg.family}): {cfg.n_layers} layers x "
+          f"{cfg.d_model}, {cfg.param_count() / 1e6:.1f}M params, seq "
+          f"{args.seq}, batch {args.global_batch}, {cfg.dtype} on {dev}",
+          flush=True)
+
+    def train_step(state, batch):
+        loss, grads = steps_mod.value_and_grad(cfg, state["params"], batch)
+        grads, new_res = compression.compress_grads(
+            comp_cfg, grads, state["residual"])
+        new_params, new_opt, metrics = optim.apply_updates(
+            opt_cfg, state["params"], grads, state["opt"])
+        metrics["loss"] = loss
+        return ({"params": new_params, "opt": new_opt,
+                 "residual": new_res}, metrics)
+
+    state, _ = build_state(cfg, opt_cfg, mesh, device=dev)
+    state["residual"] = (compression.init_residuals(state["params"])
+                         if comp_cfg.mode != "none" else {})
+
+    policy = (resilience.CheckpointPolicy(args.ckpt_dir, args.ckpt_every)
+              if args.ckpt_dir else None)
+    injector = resilience.FailureInjector(args.fail_at)
+    monitor = resilience.StragglerMonitor()
+    metrics_out = open(args.metrics_out, "a") if args.metrics_out else None
+
+    def loop(st, start):
+        nonlocal state
+        if st is not None:
+            state = st
+        step = start
+        while step < args.steps:
+            t0 = time.perf_counter()
+            injector.check(step)
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in source.batch(step).items()}
+            state, metrics = train_step(state, batch)
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            monitor.observe(step, dt, lambda s, d: print(
+                f"[train] straggler at step {s}: {d:.2f}s", flush=True))
+            if step % args.log_every == 0:
+                print(f"[train] step {step} loss {loss:.4f} {dt:.2f}s",
+                      flush=True)
+            rec = {"step": step, "loss": loss,
+                   "grad_norm": float(metrics["grad_norm"]),
+                   "lr": float(metrics["lr"]), "seconds": dt,
+                   "tokens": args.global_batch * args.seq}
+            if policy:
+                t1 = time.perf_counter()
+                path = policy.maybe_save(step, state)
+                if path:
+                    rec["ckpt_seconds"] = time.perf_counter() - t1
+                    rec["ckpt_bytes"] = _dir_bytes(path)
+                    print(f"[train] checkpoint step {step}: "
+                          f"{rec['ckpt_bytes'] / 1e6:.1f} MB in "
+                          f"{rec['ckpt_seconds']:.2f}s", flush=True)
+            if metrics_out:
+                metrics_out.write(json.dumps(rec) + "\n")
+                metrics_out.flush()
+            step += 1
+        return state
+
+    try:
+        if policy:
+            state = resilience.run_resilient(loop, state, policy, device=dev)
+        else:
+            state = loop(None, 0)
+    finally:
+        if metrics_out:
+            metrics_out.close()
+    print(f"[train] done: {args.steps} steps, "
+          f"straggler events: {len(monitor.events)}", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--mesh", default="1x1",
+                    help="device mesh; the port takes only 1x1")
     ap.add_argument("--layers", type=int, default=0,
                     help="override n_layers (reduced runs)")
     ap.add_argument("--d-model", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from --ckpt-dir (with a --ckpt-dir the "
+                         "run always starts from its latest checkpoint)")
+    ap.add_argument("--compress", default="none",
+                    choices=["none", "int8", "topk"])
+    ap.add_argument("--fail-at", type=int, default=None,
+                    help="inject a failure at this step (drills restart)")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--metrics-out", default=None,
+                    help="LM families: append one JSON line per step "
+                         "(loss, grad norm, lr, seconds, checkpoint)")
+    ap.add_argument("--prove", action="store_true",
+                    help="require prove-while-train (families without a "
+                         "registered proof graph fail loudly)")
     ap.add_argument("--prove-window", type=int, default=4,
                     help="steps per aggregated proof")
     ap.add_argument("--widths", default=None,
@@ -141,16 +305,22 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.pipeline.graph import PROOF_GRAPH_BUILDERS
+    from repro_torch.core.pipeline.graph import (PROOF_GRAPH_BUILDERS,
+                                                 proof_graph_for_family)
     try:
         arch_cfg = get_config(args.arch)
     except LookupError as exc:
         raise SystemExit(f"--arch: {exc}") from None
-    if arch_cfg.family not in PROOF_GRAPH_BUILDERS:
-        raise SystemExit(f"--arch {args.arch}: family {arch_cfg.family!r} "
-                         "has no proof graph; its model steps are not "
-                         "ported (ROADMAP.md queue 1, item 16)")
-    return run_zkdl_train(arch_cfg, args)
+    if arch_cfg.family in PROOF_GRAPH_BUILDERS:
+        return run_zkdl_train(arch_cfg, args)
+    if args.prove:
+        # raises "no proof graph registered for family ..." with the
+        # list of provable families
+        try:
+            proof_graph_for_family(arch_cfg.family)
+        except LookupError as exc:
+            raise SystemExit(f"--prove: {exc}") from None
+    return run_lm_train(arch_cfg, args)
 
 
 if __name__ == "__main__":

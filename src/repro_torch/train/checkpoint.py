@@ -18,10 +18,12 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import List, Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.tree import tree_leaves_with_names, tree_unflatten
 
 
 class StorageError(OSError):
@@ -71,32 +73,6 @@ def atomic_write_bytes(path: str, data: bytes, fsync: bool = True) -> None:
                            f"{exc.strerror or exc}") from exc
 
 
-def _flatten(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, object]]:
-    """(leaf name, leaf) pairs in the reference's order and naming: dict
-    keys sorted, list and tuple entries as ``[i]``, the path joined by
-    ``__``.  None is an empty subtree."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [pair for k in sorted(tree)
-                for pair in _flatten(tree[k], prefix + (str(k),))]
-    if isinstance(tree, (list, tuple)):
-        return [pair for i, v in enumerate(tree)
-                for pair in _flatten(v, prefix + (f"[{i}]",))]
-    return [("__".join(prefix), tree)]
-
-
-def _unflatten(tree, leaves):
-    """``tree``'s structure with its leaves replaced, in `_flatten` order."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_unflatten(v, leaves) for v in tree)
-    return next(leaves)
-
-
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
@@ -111,7 +87,7 @@ def save(ckpt_dir: str, step: int, state) -> str:
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}}
-    for name, leaf in _flatten(state):
+    for name, leaf in tree_leaves_with_names(state):
         arr = _host(leaf)
         np.save(os.path.join(tmp, name + ".npy"), arr)
         manifest["leaves"][name] = {"shape": list(arr.shape),
@@ -146,7 +122,7 @@ def restore(ckpt_dir: str, step: int, state_template, device=None):
 
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     out = []
-    for name, tmpl in _flatten(state_template):
+    for name, tmpl in tree_leaves_with_names(state_template):
         arr = np.load(os.path.join(d, name + ".npy"))
         assert tuple(arr.shape) == tuple(np.shape(tmpl)), (name, arr.shape)
         if device is not None:
@@ -156,7 +132,7 @@ def restore(ckpt_dir: str, step: int, state_template, device=None):
         else:
             dev = resolve_device(None)
         out.append(torch.as_tensor(arr, device=dev))
-    return _unflatten(state_template, iter(out))
+    return tree_unflatten(state_template, out)
 
 
 def _gc(ckpt_dir: str, keep: int):

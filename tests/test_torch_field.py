@@ -175,6 +175,16 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch, repro_torch.interop, repro_torch.kernels\n"
         "import repro_torch.core.pipeline as p\n"
         "import repro_torch.core.zkrelu, repro_torch.core.ipa\n"
+        "import repro_torch.configs.registry, repro_torch.data.pipeline\n"
+        "import repro_torch.models.config, repro_torch.models.layers\n"
+        "import repro_torch.models.attention, repro_torch.models.blockwise\n"
+        "import repro_torch.models.ssm, repro_torch.models.moe\n"
+        "import repro_torch.models.transformer, repro_torch.tree\n"
+        "import repro_torch.train.optim, repro_torch.train.compression\n"
+        "import repro_torch.launch.steps, repro_torch.launch.train\n"
+        "from repro_torch.configs.registry import ARCHS, get_config\n"
+        "for a in ARCHS:\n"
+        "    get_config(a)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('isolated')\n")

@@ -257,3 +257,66 @@ def test_corrupt_cache_entry_is_rebuilt(dev):
     assert os.path.getsize(path) > 0 and name in _build.SOURCES
     a, b = _field(FQ, 257, 5, dev), _field(FQ, 257, 6, dev)
     assert torch.equal(mk.modmul(FQ, a, b), mk.modmul_plain(FQ, a, b))
+
+
+@pytest.mark.parametrize("arch", ["qwen3_0p6b", "mamba2_2p7b",
+                                  "deepseek_v2_lite_16b"])
+def test_smoke_forward_on_card_matches_cpu(dev, arch):
+    """One float32 forward and loss of a smoke config on the card and on
+    the CPU from the same parameters (matmuls in full float32)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import transformer as tt
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = SyntheticTokens(cfg, 32, 2, seed=1).batch(0)
+    cpu = {k: torch.as_tensor(v) for k, v in batch.items()}
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want, _ = tt.forward(cfg, params, cpu)
+            got, _ = tt.forward(cfg, tree_map(lambda p: p.to(dev),
+                                                 params), card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert float((got.cpu() - want).abs().max()) <= \
+        1e-4 * float(want.abs().max())
+
+
+def test_lm_trainer_restart_on_card(dev, tmp_path, monkeypatch):
+    """A --fail-at run of the smoke trainer on the card resumes after its
+    last checkpoint with the uninterrupted run's losses, bit for bit
+    under deterministic algorithms."""
+    import json
+    import os
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    monkeypatch.setattr(registry, "get_config",
+                        lambda name, **kw: registry.smoke_config(name))
+    base = ["--arch", "qwen3-0.6b", "--seq", "32",
+            "--global-batch", "2", "--steps", "6", "--compress", "int8"]
+
+    def run(name, extra):
+        out = str(tmp_path / f"{name}.jsonl")
+        assert train.main(base + ["--metrics-out", out] + extra) == 0
+        with open(out) as f:
+            return [json.loads(line) for line in f]
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = run("plain", [])
+        failed = run("failed", ["--ckpt-dir", str(tmp_path / "ck"),
+                                "--ckpt-every", "2", "--fail-at", "3"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert [r["step"] for r in failed] == list(range(6))
+    assert [r["loss"] for r in failed] == [r["loss"] for r in plain]

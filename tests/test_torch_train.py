@@ -70,9 +70,11 @@ def test_trainer_reproduces_reference_window_proofs(hooks, case, capsys):
 
 
 def test_trainer_exits_on_unported_paths():
+    """The LM families train now; what is still refused (a mesh of more
+    than one device) names the ROADMAP item it waits on."""
     base = ["--device", "cpu", "--steps", "1"]
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        train.main(base + ["--arch", "qwen3-0.6b"])
+    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, item F"):
+        train.main(base + ["--arch", "qwen3-0.6b", "--mesh", "16x16"])
 
 
 # sha256 of the files the reference trainer's prover service wrote,
