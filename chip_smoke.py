@@ -71,7 +71,18 @@ Phases, each printing one JSON line:
    dense attention at S = 4096 in float32, then one forward and
    backward pass at seq 4096.  Phase golden also proves the standalone
    validity IPA (`zkrelu.prove_validity`) on the card and compares it
-   with the reference's recorded proof.
+   with the reference's recorded proof;
+10. mesh: the DeviceMesh / DTensor path on the card.  (a) (9a)'s run
+   plain and then with ``--mesh 1x1`` (an NCCL world of one): losses
+   within 1e-6 relative (and whether bit for bit), median step seconds
+   and peak GB of both; (b) `steps.lower_train` of that cell on a 1x1
+   fake mesh in a subprocess: its argument bytes equal the bytes (a)'s
+   state and batch held on the card, and its live bytes are within a
+   factor of 1.5 of (a)'s peak; (c) ``python -m
+   repro_torch.launch.dryrun`` on 16x16, one train_4k cell per family
+   (dense, moe, ssm, hybrid, encdec, vlm), six processes at once, each
+   ``ok``; (d) the forward of both moe smoke configs with DTensor
+   parameters on a 1x1 mesh equals the plain forward to 1e-6.
 
 Phase 1 also starts a fresh interpreter that calls one kernel: it must
 report no compile (`repro_torch.core.execache.stats()`).
@@ -2035,6 +2046,7 @@ def phase_lm(state, profile: bool = False) -> dict:
     ok = all([p.pop("_ok", True) for p in parts.values()])
     smi = state["smi"]
     a, b, e = parts["a_full"], parts["b_restart"], parts["e_serve"]
+    state["lm_a"] = a
     e32, e16 = e["f32"], e["bf16"]
     for line in (
             f"qwen3-0.6b {a['layers']} layers x {a['d_model']}, seq "
@@ -2062,6 +2074,213 @@ def phase_lm(state, profile: bool = False) -> dict:
         print(f"lm: {line} [{smi}]", flush=True)
     return {"arch": LM_ARCH, "seq": LM_SEQ, "batch": LM_BATCH,
             "nvidia_smi": smi, "seconds_by_part": t, **parts, "_ok": ok}
+
+
+# phase mesh (c): one train_4k cell per family on the 16x16 dry-run mesh
+MESH_FAMILY_ARCHS = {"dense": "qwen3-0.6b", "moe": "deepseek-v2-lite-16b",
+                     "ssm": "mamba2-2.7b", "hybrid": "zamba2-2.7b",
+                     "encdec": "seamless-m4t-medium", "vlm": "qwen2-vl-2b"}
+# (b): the dry run's live bytes against the card's peak, within this factor
+MESH_LIVE_FACTOR = 1.5
+
+_MESH_LOWER = r"""
+import json, sys
+from repro_torch.configs.registry import get_config
+from repro_torch.launch import dryrun, mesh, steps
+dryrun.init_fake_world(1)
+cell = steps.lower_train(get_config(sys.argv[1]),
+                         mesh.make_mesh((1, 1), ("data", "model")),
+                         int(sys.argv[2]), int(sys.argv[3]))
+print("RECORD " + json.dumps(dryrun.analyze_compiled(cell.compile(), 1)))
+"""
+
+
+def _mesh_train(work: str) -> dict:
+    """(a) phase lm (a)'s run, plain and then with --mesh 1x1."""
+    import gc
+    import statistics
+
+    import torch
+
+    argv = ["--arch", LM_ARCH, "--steps", str(LM_STEPS), "--seq",
+            str(LM_SEQ), "--global-batch", str(LM_BATCH)]
+    out = {}
+    for name, extra in (("plain", []), ("mesh_1x1", ["--mesh", "1x1"])):
+        gc.collect()                    # the last run's state, if cyclic
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        recs = _lm_main(argv + extra, os.path.join(work, name + ".jsonl"))
+        out[name] = {
+            "losses": [r["loss"] for r in recs],
+            "grad_norms": [r["grad_norm"] for r in recs],
+            "median_step_s_after_0": statistics.median(
+                r["seconds"] for r in recs[1:]),
+            "peak_bytes": torch.cuda.max_memory_allocated() - held,
+            "held_before_bytes": held,
+            "state_bytes": recs[0]["state_bytes"], "_finite": _finite(recs)}
+    plain, mesh = out["plain"], out["mesh_1x1"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(mesh["losses"],
+                                                   plain["losses"]))
+    return {**out, "loss_max_rel": rel,
+            "bit_equal": mesh["losses"] == plain["losses"],
+            "_ok": (len(mesh["losses"]) == LM_STEPS and rel <= 1e-6
+                    and plain.pop("_finite") and mesh.pop("_finite"))}
+
+
+def _subprocess(argv, timeout: int) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.run(argv, capture_output=True, text=True,
+                          timeout=timeout, env=env, cwd=ROOT)
+
+
+def _mesh_lower(a: dict) -> dict:
+    """(b) `steps.lower_train` of (a)'s cell on a 1x1 fake mesh against
+    what (a) held on the card."""
+    res = _subprocess([sys.executable, "-c", _MESH_LOWER, LM_ARCH,
+                       str(LM_SEQ), str(LM_BATCH)], 600)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("RECORD ")]
+    if res.returncode != 0 or not lines:
+        return {"stderr": res.stderr[-3000:], "_ok": False}
+    rec = json.loads(lines[-1][len("RECORD "):])
+    batch_bytes = 2 * LM_BATCH * LM_SEQ * 4          # int32 tokens, labels
+    want_args = a["mesh_1x1"]["state_bytes"] + batch_bytes
+    args = rec["memory"]["argument_size_in_bytes"]
+    live, peak = rec["per_device_live_bytes"], a["mesh_1x1"]["peak_bytes"]
+    ratio = live / peak
+    return {"argument_bytes": args, "card_argument_bytes": want_args,
+            "live_bytes": live, "card_peak_bytes": peak,
+            "live_over_peak": ratio, "flops": rec["per_device_flops"],
+            "collective_bytes": rec["per_device_collective_bytes"],
+            "_ok": (args == want_args
+                    and 1 / MESH_LIVE_FACTOR <= ratio <= MESH_LIVE_FACTOR)}
+
+
+def _mesh_dryrun(work: str) -> dict:
+    """(c) `python -m repro_torch.launch.dryrun` on 16x16, one train_4k
+    cell per family, the six in parallel processes."""
+    procs = {}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    for fam, arch in MESH_FAMILY_ARCHS.items():
+        procs[fam] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", "train_4k", "--out",
+             os.path.join(work, "dryrun")], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    cells, ok = {}, True
+    for fam, proc in procs.items():
+        try:
+            _, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        path = os.path.join(work, "dryrun", f"{MESH_FAMILY_ARCHS[fam]}"
+                            "__train_4k__16_16.json")
+        rec = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                rec = json.load(f)
+        cells[fam] = {k: rec.get(k) for k in (
+            "arch", "status", "error", "per_device_flops",
+            "per_device_collective_bytes", "per_device_live_bytes",
+            "compile_s")}
+        cells[fam]["memory"] = rec.get("memory")
+        if rec.get("status") != "ok" or proc.returncode != 0:
+            cells[fam]["stderr"] = err[-2000:]
+            ok = False
+    return {"cells": cells, "_ok": ok}
+
+
+def _mesh_moe(dev) -> dict:
+    """(d) the forward of both moe smoke configs on a 1x1 DeviceMesh
+    (DTensors, the MoE local_map path) against the plain forward."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.registry import ARCHS, get_config, smoke_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.distributed import hints, sharding
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as tt
+
+    out, ok = {}, True
+    mesh, _, started = train.start_mesh("1x1", dev)
+    try:
+        for arch in ARCHS:
+            if get_config(arch).family != "moe":
+                continue
+            cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+            params = tt.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0))
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                     SyntheticTokens(cfg, 32, 2, seed=1).batch(0).items()}
+            with torch.no_grad():
+                plain, _ = tt.forward(cfg, params, batch)
+                steps.set_mesh_hints(mesh)
+                dp = steps.place(params, sharding.param_shardings(
+                    cfg, mesh, params))
+                db = steps.place(batch, sharding.batch_shardings(
+                    cfg, mesh, batch))
+                with implicit_replication():
+                    got, _ = tt.forward(cfg, dp, db)
+                hints.clear()
+            got = got.full_tensor()
+            rel = _rel_err(got, plain)
+            out[arch] = {"max_rel": rel, "bit_equal": bool(
+                torch.equal(got, plain))}
+            ok &= rel <= 1e-6
+    finally:
+        hints.clear()
+        if started:
+            dist.destroy_process_group()
+    return {"archs": out, "tolerance": 1e-6, "_ok": ok}
+
+
+def phase_mesh(state) -> dict:
+    """The mesh code on the card (see the docstring)."""
+    import shutil
+
+    import torch
+
+    work = os.path.join(OUT_DIR, "mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dev = torch.device("cuda")
+    parts, t = {}, {}
+    for name, fn in (("a_train", lambda: _mesh_train(work)),
+                     ("b_lower", lambda: _mesh_lower(parts["a_train"])),
+                     ("c_dryrun", lambda: _mesh_dryrun(work)),
+                     ("d_moe", lambda: _mesh_moe(dev))):
+        t0 = time.perf_counter()
+        try:
+            parts[name] = fn()
+        except Exception:                    # report, then fail the phase
+            parts[name] = {"error": traceback.format_exc(), "_ok": False}
+        t[name] = time.perf_counter() - t0
+    ok = all([p.pop("_ok", True) for p in parts.values()])
+    smi = state["smi"]
+    a, b = parts["a_train"], parts["b_lower"]
+    lm_a = state.get("lm_a", {})
+    if "plain" in a:
+        print(f"mesh: qwen3-0.6b {LM_SEQ} x {LM_BATCH}, --mesh 1x1 losses "
+              f"within {a['loss_max_rel']:.3g} of the plain path's, bit "
+              f"for bit {a['bit_equal']}; median step "
+              f"{a['mesh_1x1']['median_step_s_after_0']:.4f} s (DTensor) "
+              f"against {a['plain']['median_step_s_after_0']:.4f} s (plain; "
+              f"phase lm (a) "
+              f"{lm_a.get('median_step_s_after_0', float('nan')):.4f} s); "
+              f"peak {a['mesh_1x1']['peak_bytes'] / 1e9:.2f} GB (plain "
+              f"{a['plain']['peak_bytes'] / 1e9:.2f} GB) [{smi}]", flush=True)
+    if "live_bytes" in b:
+        print(f"mesh: dry run of that cell on a 1x1 fake mesh: argument "
+              f"bytes {b['argument_bytes']} (card {b['card_argument_bytes']}"
+              f"), live {b['live_bytes'] / 1e9:.2f} GB against the card's "
+              f"peak {b['card_peak_bytes'] / 1e9:.2f} GB "
+              f"({b['live_over_peak']:.3f}x) [{smi}]", flush=True)
+    return {"nvidia_smi": smi, "seconds_by_part": t, **parts, "_ok": ok}
 
 
 KERNEL_META = {
@@ -2110,7 +2329,7 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=4096)
     ap.add_argument("--phases",
                     default="build,kernels,golden,full,train,open,audit,"
-                            "serve,lm")
+                            "serve,lm,mesh")
     ap.add_argument("--profile", action="store_true",
                     help="trace the second full-width prove (phase "
                          "full) and one LM train step (phase lm) with "
@@ -2145,6 +2364,7 @@ def main(argv=None) -> int:
         "audit": lambda: phase_audit(state, args.width),
         "serve": lambda: phase_serve(state, args.width),
         "lm": lambda: phase_lm(state, args.profile),
+        "mesh": lambda: phase_mesh(state),
     }
     failed, record = [], {}
     for name in phases:

@@ -5,14 +5,23 @@
         [--compress int8|topk] [--fail-at 37] [--resume] [--device cpu]
     python -m repro_torch.launch.train --arch qwen3-0.6b --layers 2 \
         --d-model 64 --device cpu --steps 4 --seq 32 --global-batch 2
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen3-0.6b --mesh 2x2 --device cpu ...
 
 An LM family (dense, moe, ssm, hybrid, encdec, vlm) trains with AdamW
 on the reference's synthetic token stream, with gradient compression,
 periodic checkpoints, restart from the latest one after a failure
 (``--fail-at`` injects one) and straggler monitoring: the reference's
-`repro.launch.train` loop on one device, with its flags and log lines.
-``--mesh`` takes only the one-device ``1x1``: meshes are ROADMAP.md
-queue 1, item F.
+`repro.launch.train` loop, with its flags and log lines.  Without
+``--mesh`` it trains on one device with plain tensors.  ``--mesh DxM``
+(``data`` x ``model``) or ``PxDxM`` (``pod`` x ...) trains on a
+DeviceMesh: the state is DTensors placed by the sharding rules
+(`repro_torch.distributed.sharding`), each global batch is sharded
+over the batch axes, and a restart re-places the checkpoint under the
+mesh it comes back on.  Under torchrun the world must have exactly the
+mesh's ranks; outside it only ``1x1`` runs, in a world of one.  The
+process group is NCCL on the card (one card per rank) and gloo with
+``--device cpu``; rank 0 logs.
 
     python -m repro_torch.launch.train --arch fcnn-zkdl-16l \
         --layers 2 --d-model 8 --global-batch 4 --steps 8 \
@@ -32,13 +41,18 @@ each window's proof streams to ``proof_NNNNNN.bin`` beside a serialized
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch._device import resolve_device
 
@@ -129,36 +143,78 @@ def run_zkdl_train(cfg, args) -> int:
     return 0
 
 
+MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
 def parse_mesh(spec: str):
-    """``DxM`` or ``PxDxM`` -> the shape tuple.  The port runs on one
-    device, so every axis must be 1."""
+    """``DxM`` or ``PxDxM`` -> the shape tuple."""
     try:
         dims = tuple(int(x) for x in spec.lower().split("x"))
     except ValueError:
         dims = ()
-    if len(dims) not in (2, 3):
+    if len(dims) not in (2, 3) or min(dims) < 1:
         raise SystemExit(f"bad --mesh {spec!r} (want DxM or PxDxM)")
-    if any(d != 1 for d in dims):
-        raise SystemExit(f"--mesh {spec}: the port trains on one device "
-                         "(1x1); meshes are ROADMAP.md queue 1, item F")
     return dims
 
 
-def build_state(cfg, opt_cfg, mesh=(1, 1), rng_seed: int = 0, device=None):
+def start_mesh(spec: str, device=None):
+    """(DeviceMesh of ``--mesh spec``, this rank's device, whether this
+    call started the process group)."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    dims = parse_mesh(spec)
+    need = math.prod(dims)
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    started = not dist.is_initialized()
+    if "WORLD_SIZE" in os.environ:                 # under torchrun
+        world = int(os.environ["WORLD_SIZE"])
+        if world != need:
+            raise SystemExit(
+                f"--mesh {spec} has {need} devices but torchrun started "
+                f"{world} ranks: run it with --nproc-per-node {need}")
+        if dev.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            if local >= torch.cuda.device_count():
+                raise SystemExit(
+                    f"--mesh {spec}: rank {local} has no card of its own "
+                    f"({torch.cuda.device_count()} visible); NCCL takes one "
+                    "card per rank, so run larger meshes on the CPU with "
+                    "--device cpu")
+            dev = torch.device("cuda", local)
+            torch.cuda.set_device(dev)
+        if started:
+            dist.init_process_group(backend)       # env:// from torchrun
+    elif need != 1:
+        raise SystemExit(
+            f"--mesh {spec} has {need} devices: run it under torchrun "
+            f"--nproc-per-node {need} (outside torchrun the world is this "
+            "one process)")
+    else:
+        mesh_mod.init_world(backend)
+    return mesh_mod.make_mesh(dims, MESH_AXES[len(dims)]), dev, started
+
+
+def build_state(cfg, opt_cfg, mesh=None, rng_seed: int = 0, device=None):
     """Fresh train state ``{"params", "opt"}`` on ``device`` (default: the
-    card), drawn from a generator seeded with ``rng_seed``; also returns
-    the state's shapes (`steps.state_specs`)."""
+    card), drawn from a generator seeded with ``rng_seed``, and the
+    state's shapes (`steps.state_specs`).  With a DeviceMesh the state
+    is distributed by `steps.state_shardings` (every rank draws the same
+    values)."""
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import transformer
     from repro_torch.train import optim
 
-    del mesh                                   # one device (parse_mesh)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(rng_seed)
     params = transformer.init_params(cfg, gen)
     state = {"params": params, "opt": optim.init_opt_state(params, opt_cfg)}
-    return state, steps_mod.state_specs(cfg, opt_cfg)
+    specs = steps_mod.state_specs(cfg, opt_cfg)
+    if mesh is not None:
+        state = steps_mod.place(state, steps_mod.state_shardings(
+            cfg, mesh, specs))
+    return state, specs
 
 
 def _dir_bytes(path: str) -> int:
@@ -166,9 +222,18 @@ def _dir_bytes(path: str) -> int:
                for d, _, fs in os.walk(path) for f in fs)
 
 
+def _value(t) -> float:
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return float(t)
+
+
 def run_lm_train(cfg, args) -> int:
     from repro_torch.data import pipeline
+    from repro_torch.distributed import hints
+    from repro_torch.distributed import sharding as shard_rules
     from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.specs import train_batch_specs
     from repro_torch.train import compression, optim, resilience
 
     overrides = {}
@@ -182,35 +247,61 @@ def run_lm_train(cfg, args) -> int:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
 
-    mesh = parse_mesh(args.mesh)
+    mesh, started = None, False
     dev = resolve_device(args.device)
+    if args.mesh is not None:
+        mesh, dev, started = start_mesh(args.mesh, args.device)
+        steps_mod.set_mesh_hints(mesh)
+    rank0 = mesh is None or dist.get_rank() == 0
+
+    def log(msg: str) -> None:
+        if rank0:
+            print(msg, flush=True)
+
     opt_cfg = steps_mod.default_opt_cfg(cfg)
     comp_cfg = compression.CompressionConfig(mode=args.compress)
     source = pipeline.make_source(cfg, args.seq, args.global_batch)
-    print(f"[train] {cfg.name} ({cfg.family}): {cfg.n_layers} layers x "
-          f"{cfg.d_model}, {cfg.param_count() / 1e6:.1f}M params, seq "
-          f"{args.seq}, batch {args.global_batch}, {cfg.dtype} on {dev}",
-          flush=True)
+    where = f"mesh {args.mesh} {mesh.mesh_dim_names}" if mesh else str(dev)
+    log(f"[train] {cfg.name} ({cfg.family}): {cfg.n_layers} layers x "
+        f"{cfg.d_model}, {cfg.param_count() / 1e6:.1f}M params, seq "
+        f"{args.seq}, batch {args.global_batch}, {cfg.dtype} on {where}")
+
+    state, specs = build_state(cfg, opt_cfg, mesh, device=dev)
+    residual = (compression.init_residuals(state["params"])
+                if comp_cfg.mode != "none" else {})
+    shardings = b_shard = None
+    if mesh is not None:
+        res_shard = shard_rules.param_shardings(cfg, mesh, residual)
+        residual = steps_mod.place(residual, res_shard)
+        shardings = dict(steps_mod.state_shardings(cfg, mesh, specs),
+                         residual=res_shard)
+        b_shard = shard_rules.batch_shardings(
+            cfg, mesh, train_batch_specs(cfg, args.seq, args.global_batch))
+    state["residual"] = residual
 
     def train_step(state, batch):
-        loss, grads = steps_mod.value_and_grad(cfg, state["params"], batch)
-        grads, new_res = compression.compress_grads(
-            comp_cfg, grads, state["residual"])
-        new_params, new_opt, metrics = optim.apply_updates(
-            opt_cfg, state["params"], grads, state["opt"])
+        on_mesh = (implicit_replication() if mesh is not None
+                   else contextlib.nullcontext())
+        with on_mesh:
+            loss, grads = steps_mod.value_and_grad(cfg, state["params"],
+                                                   batch)
+            grads, new_res = compression.compress_grads(
+                comp_cfg, grads, state["residual"])
+            new_params, new_opt, metrics = optim.apply_updates(
+                opt_cfg, state["params"], grads, state["opt"])
         metrics["loss"] = loss
-        return ({"params": new_params, "opt": new_opt,
-                 "residual": new_res}, metrics)
-
-    state, _ = build_state(cfg, opt_cfg, mesh, device=dev)
-    state["residual"] = (compression.init_residuals(state["params"])
-                         if comp_cfg.mode != "none" else {})
+        new_state = {"params": new_params, "opt": new_opt,
+                     "residual": new_res}
+        if mesh is not None:
+            new_state = steps_mod.redistribute_to(new_state, shardings)
+        return new_state, metrics
 
     policy = (resilience.CheckpointPolicy(args.ckpt_dir, args.ckpt_every)
               if args.ckpt_dir else None)
     injector = resilience.FailureInjector(args.fail_at)
     monitor = resilience.StragglerMonitor()
-    metrics_out = open(args.metrics_out, "a") if args.metrics_out else None
+    metrics_out = (open(args.metrics_out, "a")
+                   if args.metrics_out and rank0 else None)
 
     def loop(st, start):
         nonlocal state
@@ -222,27 +313,29 @@ def run_lm_train(cfg, args) -> int:
             injector.check(step)
             batch = {k: torch.as_tensor(v, device=dev)
                      for k, v in source.batch(step).items()}
+            if mesh is not None:     # every rank made the same global batch
+                batch = steps_mod.place(batch, b_shard)
             state, metrics = train_step(state, batch)
-            loss = float(metrics["loss"])
+            loss = _value(metrics["loss"])
             dt = time.perf_counter() - t0
-            monitor.observe(step, dt, lambda s, d: print(
-                f"[train] straggler at step {s}: {d:.2f}s", flush=True))
+            monitor.observe(step, dt, lambda s, d: log(
+                f"[train] straggler at step {s}: {d:.2f}s"))
             if step % args.log_every == 0:
-                print(f"[train] step {step} loss {loss:.4f} {dt:.2f}s",
-                      flush=True)
+                log(f"[train] step {step} loss {loss:.4f} {dt:.2f}s")
             rec = {"step": step, "loss": loss,
-                   "grad_norm": float(metrics["grad_norm"]),
-                   "lr": float(metrics["lr"]), "seconds": dt,
-                   "tokens": args.global_batch * args.seq}
+                   "grad_norm": _value(metrics["grad_norm"]),
+                   "lr": _value(metrics["lr"]), "seconds": dt,
+                   "tokens": args.global_batch * args.seq,
+                   "state_bytes": steps_mod.local_bytes(state)}
             if policy:
                 t1 = time.perf_counter()
                 path = policy.maybe_save(step, state)
                 if path:
                     rec["ckpt_seconds"] = time.perf_counter() - t1
-                    rec["ckpt_bytes"] = _dir_bytes(path)
-                    print(f"[train] checkpoint step {step}: "
-                          f"{rec['ckpt_bytes'] / 1e6:.1f} MB in "
-                          f"{rec['ckpt_seconds']:.2f}s", flush=True)
+                    rec["ckpt_bytes"] = _dir_bytes(path) if rank0 else 0
+                    log(f"[train] checkpoint step {step}: "
+                        f"{rec['ckpt_bytes'] / 1e6:.1f} MB in "
+                        f"{rec['ckpt_seconds']:.2f}s")
             if metrics_out:
                 metrics_out.write(json.dumps(rec) + "\n")
                 metrics_out.flush()
@@ -251,14 +344,19 @@ def run_lm_train(cfg, args) -> int:
 
     try:
         if policy:
-            state = resilience.run_resilient(loop, state, policy, device=dev)
+            state = resilience.run_resilient(loop, state, policy,
+                                             shardings=shardings, device=dev)
         else:
             state = loop(None, 0)
     finally:
         if metrics_out:
             metrics_out.close()
-    print(f"[train] done: {args.steps} steps, "
-          f"straggler events: {len(monitor.events)}", flush=True)
+        if mesh is not None:
+            hints.clear()
+        if started:
+            dist.destroy_process_group()
+    log(f"[train] done: {args.steps} steps, "
+        f"straggler events: {len(monitor.events)}")
     return 0
 
 
@@ -268,8 +366,10 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--global-batch", type=int, default=8)
-    ap.add_argument("--mesh", default="1x1",
-                    help="device mesh; the port takes only 1x1")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM or PxDxM: train on a DeviceMesh with DTensors "
+                         "(under torchrun, one rank per device; 1x1 alone "
+                         "outside it); default: one device, plain tensors")
     ap.add_argument("--layers", type=int, default=0,
                     help="override n_layers (reduced runs)")
     ap.add_argument("--d-model", type=int, default=0)

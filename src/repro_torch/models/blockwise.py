@@ -2,14 +2,33 @@
 inside a loop over q chunks (the reference's `repro.models.blockwise`).
 
 Taken by the transformer only above ``DENSE_ATTN_MAX_SEQ``, where the
-dense (S x T) score tensor no longer fits.  The reference's ``anchor``
-argument pins head sharding on a mesh; on one device it has nothing to
-pin and is accepted and ignored.
+dense (S x T) score tensor no longer fits.
+
+On DTensors the whole loop runs on each device's shard of the batch and
+the heads (`attention.head_parallel`), which is the reference's
+``anchor``: it pins the kv-group axis to MODEL, because SPMD otherwise
+loses the head sharding across the reshape + scan boundary and
+re-gathers q/k/v inside the kv-chunk loop.  "auto" (and "off") keep
+the kv heads on MODEL when they divide it and otherwise shard the q
+heads alone; "on" with a kv count that does not divide the model axis
+replicates the heads over it (the reference's one up-front gather per
+layer, a win for wide archs, a loss for small ones).  On one device
+the policy has nothing to pin.
+
+Causal attention stops a q chunk's kv loop at the first kv chunk that
+lies wholly after it: such a chunk's scores are all NEG_INF, so its
+weights are exactly 0 and its correction exactly 1 (the reference scans
+it anyway).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+from repro_torch.distributed import hints
+from repro_torch.models.attention import head_parallel
 
 NEG_INF = -1e9
 
@@ -17,7 +36,13 @@ NEG_INF = -1e9
 def blockwise_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
                         kv_chunk: int = 1024, anchor: str = "auto"):
     """q: (B,S,H,D), k/v: (B,T,KV,D) grouped-query; returns (B,S,H,D)."""
-    del anchor                                   # a mesh hint (see above)
+    replicate = anchor == "on" and k.shape[2] % hints.axis_size("MODEL") != 0
+    return head_parallel(functools.partial(
+        _blockwise, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk),
+        q, k, v, replicate=replicate)
+
+
+def _blockwise(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int):
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -40,6 +65,8 @@ def blockwise_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
         l = torch.zeros((b, kv, g, q_chunk), dtype=torch.float32,
                         device=q.device)
         for ki in range(nk):
+            if causal and ki * kv_chunk >= (qi + 1) * q_chunk:
+                break                   # masked whole: adds exactly 0
             k_blk, v_blk = kc[:, ki], vc[:, ki]
             scores = torch.einsum("bskgd,btkd->bkgst", q_blk, k_blk) * scale
             scores = scores.float()

@@ -13,6 +13,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.distributed import hints
+from repro_torch.distributed.sharding import P, placements
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -121,10 +126,127 @@ def mlp(params: Dict, x: torch.Tensor, act_name: str) -> torch.Tensor:
     return h @ params["wo"].to(x.dtype)
 
 
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On DTensors each device looks up the rows of
+    its own vocab range for its own batch shard (a partial sum over the
+    model axis when the vocab is sharded there), which the residual
+    stream's placement then reduces."""
+    if not isinstance(table, DTensor):
+        return table[tokens.long()]
+    mesh = table.device_mesh
+    model = hints.model_axis()
+    v_axis = None
+    if model is not None:
+        mdim = mesh.mesh_dim_names.index(model)
+        if table.placements[mdim] == Shard(0):
+            v_axis = model
+    bax = hints.resolve(tokens.shape, ("BATCH",))[0]
+    p_tok = placements(mesh, P(bax))
+    p_out = placements(mesh, P(bax))
+    g_tab = placements(mesh, P(v_axis))
+    g_tab = tuple(Partial() if name in (bax or ()) else pl
+                  for name, pl in zip(mesh.mesh_dim_names, g_tab))
+    if v_axis is not None:
+        p_out = tuple(Partial() if i == mdim else pl
+                      for i, pl in enumerate(p_out))
+        v_loc = table.shape[0] // hints.axis_size("MODEL")
+        first = mesh.get_local_rank(model) * v_loc
+    else:
+        v_loc, first = table.shape[0], 0
+
+    def lookup(tab, tok):
+        if v_axis is None:
+            return tab[tok.long()]
+        t = tok.long() - first
+        inside = (t >= 0) & (t < v_loc)
+        rows = tab[torch.clamp(t, 0, v_loc - 1)]
+        return torch.where(inside[..., None], rows, 0)
+    return local_map(lookup, out_placements=list(p_out),
+                     in_placements=(placements(mesh, P(v_axis)), p_tok),
+                     in_grad_placements=(g_tab, p_tok), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   vocab: int) -> torch.Tensor:
     """Mean CE over tokens; logits (..., V) any float dtype."""
     logits = logits.float()
+    if isinstance(logits, DTensor):
+        return torch.mean(_token_nll_vocab_parallel(logits, labels))
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.mean(lse - ll)
+
+
+def _token_nll_vocab_parallel(logits: DTensor, labels) -> DTensor:
+    """Per-token -log p(label) of DTensor logits (B, S, V), sharded over
+    the batch axes.  With the vocab replicated over the model axis each
+    device runs the plain formula on its tokens; with the vocab sharded
+    there, `_VocabShardedNLL`."""
+    mesh = logits.device_mesh
+    model = hints.model_axis()
+    bax = hints.resolve(logits.shape, ("BATCH",))[0]
+    p_tok = placements(mesh, P(bax, None))
+    if model is not None:
+        mdim = mesh.mesh_dim_names.index(model)
+        if logits.placements[mdim] == Shard(logits.ndim - 1):
+            return _VocabShardedNLL.apply(logits, labels, bax, model)
+
+    def nll(lg, lb):
+        lse = torch.logsumexp(lg, dim=-1)
+        return lse - torch.gather(lg, -1, lb[..., None].long())[..., 0]
+    p_in = placements(mesh, P(bax, None, None))
+    return local_map(nll, out_placements=list(p_tok),
+                     in_placements=(p_in, p_tok), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, labels)
+
+
+def _label_mask(logits: DTensor, labels, bax, model) -> DTensor:
+    """One-hot of the labels (B, S, V) in the logits' float dtype, each
+    device's vocab shard filled from its own range."""
+    mesh = logits.device_mesh
+    v_loc = logits.shape[-1] // hints.axis_size("MODEL")
+    first = mesh.get_local_rank(model) * v_loc
+    p_lg = placements(mesh, P(bax, None, model))
+
+    def onehot(lb):
+        t = lb.long() - first
+        cols = torch.arange(v_loc, device=lb.device)
+        return (t[..., None] == cols).to(logits.dtype)
+    return local_map(onehot, out_placements=list(p_lg),
+                     in_placements=(placements(mesh, P(bax, None)),),
+                     device_mesh=mesh, redistribute_inputs=True)(labels)
+
+
+class _VocabShardedNLL(torch.autograd.Function):
+    """-log softmax(logits)[label] with the vocab sharded over the model
+    axis (Megatron's vocab-parallel cross entropy): the max and the sum
+    of exponentials are reduced over the axis, and the gradient
+    softmax - one-hot is formed on each device's own vocab shard, so no
+    device ever holds the whole vocab (DTensor's own choice for the
+    backward of the reductions gathers it)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, bax, model):
+        mesh = logits.device_mesh
+        p_tok = placements(mesh, P(bax, None))
+        p_keep = placements(mesh, P(bax, None, None))
+        m = torch.amax(logits, dim=-1, keepdim=True).redistribute(
+            mesh, p_keep)                               # the max over V
+        se = torch.sum(torch.exp(logits - m), dim=-1).redistribute(
+            mesh, p_tok)                                # the sum over V
+        lse = torch.log(se) + m[..., 0]
+        ll = torch.sum(logits * _label_mask(logits, labels, bax, model),
+                       dim=-1).redistribute(mesh, p_tok)
+        ctx.save_for_backward(logits, lse, labels)
+        ctx.bax, ctx.model = bax, model
+        return lse - ll
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse, labels = ctx.saved_tensors
+        mesh = logits.device_mesh
+        grad = grad.redistribute(mesh, placements(mesh, P(ctx.bax, None)))
+        probs = torch.exp(logits - lse[..., None])
+        probs = probs - _label_mask(logits, labels, ctx.bax, ctx.model)
+        return probs * grad[..., None], None, None, None

@@ -5,16 +5,29 @@ Tokens-choose-experts top-k routing; assignments are sorted by expert
 (a STABLE sort: capacity slots follow token order within an expert) and
 scattered into an (E, C, d) buffer, so expert FFN compute scales with
 top_k, not E.  Assignments beyond capacity go to one extra overflow row
-that is then dropped (capacity_factor controls the head-room).  The
-reference's per-shard ``shard_map`` dispatch is mesh code and is not
-part of this module.
+that is then dropped (capacity_factor controls the head-room).
+
+Distribution (GShard/Switch pattern), on DTensors: the token->slot
+gather/scatter has data-dependent indices, so each data shard routes
+its own tokens into its own capacity slice (C_local = C / n_shards) in
+a `local_map` over the batch axes, the reference's per-shard
+``shard_map``; the only cross-device movement left is the (E, C, d)
+buffer's redistribution of the expert axis onto 'model', the
+irreducible expert-parallel traffic.  With experts on 'model' each
+model shard combines its own experts' outputs into a partial (n_loc, d)
+sum that is reduced over 'model' (the reference's ``psum``).  Plain
+tensors (one device) take the unsharded path unchanged.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed import hints
+from repro_torch.distributed.sharding import P, placements
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import activation, dense_init
 
@@ -86,14 +99,103 @@ def moe_ffn(params: Dict, x, cfg: ModelConfig):
     act = activation(cfg.act)
     xf = x.reshape(n, d)
 
-    buf, meta = _route_and_dispatch(xf, params["router"], e, k, cap)
-    h = act(torch.bmm(buf, params["wg"].to(x.dtype)))
-    h = h * torch.bmm(buf, params["wi"].to(x.dtype))
-    out_e = torch.bmm(h, params["wo"].to(x.dtype))
-    y = _combine(out_e, meta, n, cap, x.dtype)
+    if isinstance(xf, DTensor):
+        y = _moe_mesh(params, xf, cfg, cap, act)
+    else:
+        buf, meta = _route_and_dispatch(xf, params["router"], e, k, cap)
+        h = act(torch.bmm(buf, params["wg"].to(x.dtype)))
+        h = h * torch.bmm(buf, params["wi"].to(x.dtype))
+        out_e = torch.bmm(h, params["wo"].to(x.dtype))
+        y = _combine(out_e, meta, n, cap, x.dtype)
 
     if cfg.n_shared_experts:
         sh = params["shared"]
         hs = act(xf @ sh["wg"].to(x.dtype)) * (xf @ sh["wi"].to(x.dtype))
         y = y + hs @ sh["wo"].to(x.dtype)
     return y.reshape(b, s, d)
+
+
+def _with_partial(mesh, pl, names) -> tuple:
+    """``pl`` with Partial() on the mesh dims named in ``names``."""
+    return tuple(Partial() if name in names else p
+                 for name, p in zip(mesh.mesh_dim_names, pl))
+
+
+def _moe_mesh(params: Dict, xf: DTensor, cfg: ModelConfig, cap: int, act):
+    """The routed experts on DTensors: (n, d) tokens -> (n, d)."""
+    n, d = xf.shape
+    e, k = cfg.n_experts, cfg.top_k
+    dt = xf.dtype
+    mesh = xf.device_mesh
+    bax = hints.batch_axis_names()
+    nshard = hints.axis_size("BATCH")
+    model = hints.model_axis()
+    msize = hints.axis_size("MODEL")
+    per_shard = bool(bax) and nshard > 1 and n % nshard == 0 \
+        and n // nshard >= k
+    if per_shard:
+        cap_loc, n_loc, b_ax = max(8, cap // nshard), n // nshard, bax
+    else:     # one global dispatch, run alike on every device
+        cap_loc, n_loc, b_ax = cap, n, None
+    tok = placements(mesh, P(b_ax))                       # (n, ...)
+    rep = placements(mesh, P())
+
+    def dispatch_shard(xf_l, rw):
+        buf_l, meta = _route_and_dispatch(xf_l, rw, e, k, cap_loc)
+        return (buf_l,) + meta
+    buf, st, sg, keep, slot = local_map(
+        dispatch_shard,
+        out_placements=(placements(mesh, P(None, b_ax)),) + (tok,) * 4,
+        in_placements=(tok, rep),
+        in_grad_placements=(tok, _with_partial(mesh, rep, b_ax or ())),
+        device_mesh=mesh, redistribute_inputs=True)(xf, params["router"])
+    # buf: (e, n_shards * cap_loc, d), the capacity sharded over the
+    # batch axes; moving the expert axis onto 'model' is the all-to-all
+    ep = e % msize == 0
+    e_ax = "MODEL" if ep else None
+    c_ax = "BATCH" if (per_shard or not ep) else None
+    f_ax = None if ep else "MODEL"
+    buf = hints.constrain(buf, (e_ax, c_ax, None))
+    h = act(torch.bmm(buf, params["wg"].to(dt)))
+    h = h * torch.bmm(buf, params["wi"].to(dt))
+    h = hints.constrain(h, (e_ax, c_ax, f_ax))
+    out_e = torch.bmm(h, params["wo"].to(dt))
+    out_e = hints.constrain(out_e, (e_ax, c_ax, None))
+
+    if per_shard and ep and model:
+        # Combine without replicating the expert axis: each model shard
+        # combines its e_loc experts' outputs into a partial (n_loc, d)
+        # and the sum over 'model' completes it
+        span = (e // msize) * cap_loc
+        base = mesh.get_local_rank(model) * span
+
+        def combine_shard(out_l, st_l, sg_l, keep_l, slot_l):
+            mine = keep_l & (slot_l >= base) & (slot_l < base + span)
+            out_flat = out_l.reshape(span, d)
+            contrib = torch.where(
+                mine[:, None],
+                out_flat[torch.clamp(slot_l - base, 0, span - 1)]
+                * sg_l[:, None].to(dt), 0)
+            y_l = torch.zeros((n_loc, d), dtype=dt, device=out_l.device)
+            return y_l.index_add(0, st_l, contrib.to(dt))
+        p_out = placements(mesh, P(model, b_ax, None))
+        y = local_map(
+            combine_shard, out_placements=list(_with_partial(mesh, tok, (model,))),
+            in_placements=(p_out,) + (tok,) * 4,
+            in_grad_placements=(p_out, tok,
+                                _with_partial(mesh, tok, (model,)), tok, tok),
+            device_mesh=mesh, redistribute_inputs=True)(
+                out_e, st, sg, keep, slot)
+        y = y.redistribute(mesh, tok)                     # the psum
+    else:
+        def combine_shard(out_l, st_l, sg_l, keep_l, slot_l):
+            return _combine(out_l, (st_l, sg_l, keep_l, slot_l), n_loc,
+                            cap_loc, dt)
+        p_out = placements(mesh, P(None, b_ax, None))
+        y = local_map(
+            combine_shard, out_placements=list(tok),
+            in_placements=(p_out,) + (tok,) * 4,
+            in_grad_placements=(p_out,) + (tok,) * 4,
+            device_mesh=mesh, redistribute_inputs=True)(
+                out_e, st, sg, keep, slot)
+    return hints.constrain(y, ("BATCH", None))

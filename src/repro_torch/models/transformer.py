@@ -11,10 +11,11 @@ Layers run in a Python loop over the stacked layer axis.  ``remat``
 wraps each layer in `torch.utils.checkpoint` (the forward is replayed
 in the backward pass); ``remat_policy="dots"`` checkpoints selectively,
 saving the outputs of the unbatched matmuls, as the reference's
-``dots_with_no_batch_dims_saveable``.  The config fields
-``scan_layers``, ``seq_shard_carry``, ``blockwise_anchor`` and ``fsdp``
-only shape the reference's XLA program or its sharding; on one device
-they have no effect here.
+``dots_with_no_batch_dims_saveable``.  ``scan_layers`` only shapes the
+reference's XLA program (a scan or an unrolled loop): both are this
+loop.  ``seq_shard_carry``, ``blockwise_anchor`` and ``fsdp`` place
+tensors on a device mesh (DTensor parameters, `repro_torch.distributed`);
+on plain tensors they change nothing.
 """
 from __future__ import annotations
 
@@ -25,17 +26,25 @@ from typing import Any, Dict
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.distributed import hints
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blockwise import blockwise_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, cross_entropy, dense_init,
-                                       device_of, init_mlp, init_rms, mlp,
-                                       normal_init, rms_norm)
+                                       device_of, embed, init_mlp, init_rms,
+                                       mlp, normal_init, rms_norm)
 from repro_torch.tree import tree_leaves, tree_map, tree_stack, tree_unstack
 
 DENSE_ATTN_MAX_SEQ = 2048     # above this, use blockwise attention
+
+
+def _carry(x):
+    """The residual stream: on a mesh, sharded over the batch axes and
+    replicated over the model axis (a model-parallel product's partial
+    sums are reduced here, not left to DTensor's choice of layout)."""
+    return hints.constrain(x, ("BATCH",) + (None,) * (x.ndim - 1))
 
 
 def _n_layers(blocks) -> int:
@@ -122,9 +131,9 @@ def _attention_any(params, x, cfg: ModelConfig, positions, positions3):
     if s > DENSE_ATTN_MAX_SEQ and not cfg.mrope_sections:
         b, _, d = x.shape
         h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, dh)
-        k = (x @ params["wk"].to(x.dtype)).reshape(b, s, kv, dh)
-        v = (x @ params["wv"].to(x.dtype)).reshape(b, s, kv, dh)
+        q = attn_mod.split_heads(x @ params["wq"].to(x.dtype), b, s, h, dh)
+        k = attn_mod.split_heads(x @ params["wk"].to(x.dtype), b, s, kv, dh)
+        v = attn_mod.split_heads(x @ params["wv"].to(x.dtype), b, s, kv, dh)
         if cfg.qk_norm:
             q = rms_norm(q, params["q_norm"])
             k = rms_norm(k, params["k_norm"])
@@ -140,14 +149,21 @@ def _attention_any(params, x, cfg: ModelConfig, positions, positions3):
 
 def _dense_block_fwd(blk, x, cfg: ModelConfig, positions, positions3=None,
                      collect_cache: bool = False):
+    if cfg.seq_shard_carry:
+        # Megatron-SP: the residual carry lives S-sharded over 'model'
+        # (the carry and the remat-saved input shrink by the model
+        # axis); gather S here, re-shard at block exit.
+        x = hints.constrain(x, ("BATCH", None, None))
     h, kvc = _attention_any(blk["attn"], rms_norm(x, blk["ln1"]), cfg,
                             positions, positions3)
-    x = x + h
+    x = _carry(x + h)
     y = rms_norm(x, blk["ln2"])
     if cfg.is_moe and "moe" in blk:
-        x = x + moe_mod.moe_ffn(blk["moe"], y, cfg)
+        x = _carry(x + moe_mod.moe_ffn(blk["moe"], y, cfg))
     else:
-        x = x + mlp(blk["mlp"], y, cfg.act)
+        x = _carry(x + mlp(blk["mlp"], y, cfg.act))
+    if cfg.seq_shard_carry:
+        x = hints.constrain(x, ("BATCH", "MODEL", None))
     return (x, kvc) if collect_cache else (x, None)
 
 
@@ -180,7 +196,10 @@ def _scan_blocks(blocks, x, fwd, remat: bool, collect=False,
     axis; stacked stashes (or None).  ``scan`` is the reference's XLA
     choice between a scan and an unrolled loop: both are this loop."""
     del scan
-    body = _remat(fwd, remat_policy) if remat else fwd
+
+    def gathered(blk, carry):      # FSDP: the layer's weights, then the layer
+        return fwd(hints.gather_weights(blk), carry)
+    body = _remat(gathered, remat_policy) if remat else gathered
     stashes = []
     for blk in tree_unstack(blocks):
         x, stash = body(blk, x)
@@ -196,6 +215,7 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def _head(cfg: ModelConfig, params: Dict, x):
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    head = hints.gather_weights(head)
     return x @ head.to(x.dtype)
 
 
@@ -214,7 +234,7 @@ def forward(cfg: ModelConfig, params: Dict, batch: Dict,
     else:
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = params["embed"].to(_dt(cfg))[tokens.long()]
+        x = embed(params["embed"].to(_dt(cfg)), tokens)
     positions = _positions(b, s, x.device)
     positions3 = batch.get("positions3")
 
@@ -223,7 +243,7 @@ def forward(cfg: ModelConfig, params: Dict, batch: Dict,
         def blk_fwd(blk, carry):
             y, st = ssm_mod.ssd_scan(blk["ssm"], rms_norm(carry, blk["ln"]),
                                      cfg)
-            return carry + y, (st if collect_cache else None)
+            return _carry(carry + y), (st if collect_cache else None)
 
         if cfg.family == "ssm":
             x, caches = _scan_blocks(params["blocks"], x, blk_fwd, cfg.remat,
@@ -239,7 +259,8 @@ def forward(cfg: ModelConfig, params: Dict, batch: Dict,
             cache_list = []
             for gidx in range(cfg.n_layers // per):
                 # as in the reference, no shared-attention cache is kept
-                x, _ = shared_fwd(params["shared_attn"], x)
+                x, _ = shared_fwd(hints.gather_weights(params["shared_attn"]),
+                                  x)
                 grp = tree_map(lambda p: p[gidx * per:(gidx + 1) * per],
                                params["blocks"])
                 x, st = _scan_blocks(grp, x, blk_fwd, cfg.remat,
@@ -281,24 +302,25 @@ def _forward_encdec(cfg: ModelConfig, params: Dict, batch: Dict,
 
     tokens = batch["tokens"]
     s = tokens.shape[1]
-    x = params["embed"].to(_dt(cfg))[tokens.long()]
+    x = embed(params["embed"].to(_dt(cfg)), tokens)
     pos = _positions(b, s, x.device)
     kv, dh = cfg.n_kv_heads, cfg.head_dim
 
     def dec_fwd(blk, carry):
         h, kvc = attn_mod.attention(blk["attn"], rms_norm(carry, blk["ln1"]),
                                     cfg, pos)
-        carry = carry + h
+        carry = _carry(carry + h)
         # cross attention over encoder output
         y = rms_norm(carry, blk["ln2"])
-        k = (enc_out @ blk["cross"]["wk"].to(carry.dtype)).reshape(
-            b, t_src, kv, dh)
-        v = (enc_out @ blk["cross"]["wv"].to(carry.dtype)).reshape(
-            b, t_src, kv, dh)
+        k = attn_mod.split_heads(enc_out @ blk["cross"]["wk"].to(carry.dtype),
+                                 b, t_src, kv, dh)
+        v = attn_mod.split_heads(enc_out @ blk["cross"]["wv"].to(carry.dtype),
+                                 b, t_src, kv, dh)
         h2, _ = attn_mod.attention(blk["cross"], y, enc_cfg, pos,
                                    kv_override=(k, v))
-        carry = carry + h2
-        carry = carry + mlp(blk["mlp"], rms_norm(carry, blk["ln3"]), cfg.act)
+        carry = _carry(carry + h2)
+        carry = _carry(carry + mlp(blk["mlp"], rms_norm(carry, blk["ln3"]),
+                                   cfg.act))
         return carry, (kvc if collect_cache else None)
 
     x, caches = _scan_blocks(params["dec"], x, dec_fwd, cfg.remat,
@@ -359,8 +381,8 @@ def make_cache(cfg: ModelConfig, batch: int, max_seq: int,
 def _ffn(blk, carry, cfg: ModelConfig):
     y = rms_norm(carry, blk["ln2"])
     if cfg.is_moe and "moe" in blk:
-        return carry + moe_mod.moe_ffn(blk["moe"], y, cfg)
-    return carry + mlp(blk["mlp"], y, cfg.act)
+        return _carry(carry + moe_mod.moe_ffn(blk["moe"], y, cfg))
+    return _carry(carry + mlp(blk["mlp"], y, cfg.act))
 
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, token, pos,
@@ -372,7 +394,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, token, pos,
     if cfg.family in ("ssm", "hybrid"):
         return _decode_ssm(cfg, params, cache, token, pos)
     if token.ndim == 1:
-        x = params["embed"].to(dt)[token.long()][:, None, :]
+        x = embed(params["embed"].to(dt), token)[:, None, :]
     else:
         x = token.to(dt)
 
@@ -420,7 +442,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, token, pos,
 
 def _decode_ssm(cfg: ModelConfig, params, cache, token, pos: int):
     dt = _dt(cfg)
-    x = params["embed"].to(dt)[token.long()][:, None, :]
+    x = embed(params["embed"].to(dt), token)[:, None, :]
 
     def run(blocks, x, states, convs):
         out_s, out_c = [], []
@@ -428,7 +450,7 @@ def _decode_ssm(cfg: ModelConfig, params, cache, token, pos: int):
             blk = tree_map(lambda a: a[i], blocks)
             y, st, cb = ssm_mod.ssd_decode(blk["ssm"], rms_norm(x, blk["ln"]),
                                            cfg, states[i], convs[i])
-            x = x + y
+            x = _carry(x + y)
             out_s.append(st)
             out_c.append(cb)
         return x, out_s, out_c
@@ -444,8 +466,9 @@ def _decode_ssm(cfg: ModelConfig, params, cache, token, pos: int):
             h, ck, cv = attn_mod.decode_attention(
                 shared["attn"], rms_norm(x, shared["ln1"]), cfg,
                 cache["k"][gidx], cache["v"][gidx], pos)
-            x = x + h
-            x = x + mlp(shared["mlp"], rms_norm(x, shared["ln2"]), cfg.act)
+            x = _carry(x + h)
+            x = _carry(x + mlp(shared["mlp"], rms_norm(x, shared["ln2"]),
+                               cfg.act))
             ks.append(ck)
             vs.append(cv)
             lo, hi = gidx * per, (gidx + 1) * per
@@ -470,13 +493,13 @@ def _decode_encdec(cfg: ModelConfig, params, cache, x, pos: int):
         h, ck, cv = attn_mod.decode_attention(
             blk["attn"], rms_norm(x, blk["ln1"]), cfg, cache["k"][i],
             cache["v"][i], pos)
-        x = x + h
+        x = _carry(x + h)
         y = rms_norm(x, blk["ln2"])
         h2, _ = attn_mod.attention(blk["cross"], y, q_cfg, None,
                                    kv_override=(cache["xk"][i].to(x.dtype),
                                                 cache["xv"][i].to(x.dtype)))
-        x = x + h2
-        x = x + mlp(blk["mlp"], rms_norm(x, blk["ln3"]), cfg.act)
+        x = _carry(x + h2)
+        x = _carry(x + mlp(blk["mlp"], rms_norm(x, blk["ln3"]), cfg.act))
         ks.append(ck)
         vs.append(cv)
     new_cache = dict(cache)

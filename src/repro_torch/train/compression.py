@@ -8,13 +8,19 @@ is what the wire sees.  Error feedback keeps the residual
 (g - dequant(quant(g))) and adds it back the next step, restoring
 convergence to the uncompressed fixed point (Karimireddy et al. 2019).
 On one device nothing crosses a wire: the round trip keeps the
-reference's numerics.
+reference's numerics.  On a device mesh a DTensor gradient and its
+residual are replicated first and every device runs the round trip on
+the whole tensor, so the blocks and the top-k run over the whole
+flattened tensor as on one device (the residual is re-sharded with the
+state).  DTensor's own flatten of a tensor sharded past dim 0 gives a
+strided shard, over which the block reshape went wrong.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -76,8 +82,16 @@ def compress_grads(cfg: CompressionConfig, grads, residuals):
         new_r = (g32 - out) if cfg.error_feedback else r
         return out.to(g.dtype), new_r
 
-    outs = [one(g, r) for g, r in zip(tree_leaves(grads),
-                                      tree_leaves(residuals))]
+    def replicated(g, r):
+        # the whole tensor on every device, the same round trip on each
+        mesh, rep = g.device_mesh, [Replicate()] * g.device_mesh.ndim
+        out, new_r = one(g.redistribute(mesh, rep).to_local(),
+                         r.redistribute(mesh, rep).to_local())
+        return (DTensor.from_local(out, mesh, rep, run_check=False),
+                DTensor.from_local(new_r, mesh, rep, run_check=False))
+
+    outs = [(replicated if isinstance(g, DTensor) else one)(g, r)
+            for g, r in zip(tree_leaves(grads), tree_leaves(residuals))]
     return (tree_unflatten(grads, [o[0] for o in outs]),
             tree_unflatten(grads, [o[1] for o in outs]))
 

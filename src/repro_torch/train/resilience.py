@@ -4,8 +4,10 @@ The reference's mechanisms (`repro.train.resilience`), on the port's
 tensors:
 
 * ``CheckpointPolicy`` -- periodic save + restart-from-latest.  Restore
-  places every leaf on an explicit device (checkpoints store full host
-  arrays, so a job can come back anywhere).
+  places every leaf on an explicit device, or re-places it under the
+  current mesh by the given shardings: checkpoints store full host
+  arrays, so a job can come back anywhere, on any mesh (elastic
+  rescale).
 
 * ``StragglerMonitor`` -- per-step wall-time EMA; a step slower than
   ``threshold`` x EMA flags a straggler event and triggers the caller's
@@ -62,14 +64,16 @@ class CheckpointPolicy:
             return checkpoint.save(self.ckpt_dir, step, state)
         return None
 
-    def restore_latest(self, state_template, device=None):
+    def restore_latest(self, state_template, shardings=None, device=None):
         """Returns (state, start_step). state_template supplies the tree
-        structure; ``device`` (optional) places every leaf."""
+        structure; ``shardings`` (optional) re-places leaves for the
+        current mesh -- this is the elastic-rescale path; ``device``
+        (optional) is where leaves are loaded."""
         step = checkpoint.latest_step(self.ckpt_dir)
         if step is None:
             return None, 0
         state = checkpoint.restore(self.ckpt_dir, step, state_template,
-                                   device=device)
+                                   shardings=shardings, device=device)
         return state, step + 1
 
 
@@ -224,12 +228,13 @@ def corrupt_exec_cache_entry() -> Optional[str]:
 
 def run_resilient(train_loop: Callable[[Any, int], Any],
                   state_template, policy: CheckpointPolicy,
-                  device=None, max_restarts: int = 3):
+                  shardings=None, max_restarts: int = 3, device=None):
     """Drive ``train_loop(state, start_step) -> state`` with
     restart-from-latest-checkpoint on failure.  Returns final state."""
     restarts = 0
     while True:
-        state, start = policy.restore_latest(state_template, device)
+        state, start = policy.restore_latest(state_template, shardings,
+                                             device)
         try:
             return train_loop(state, start)
         except SimulatedFailure as exc:

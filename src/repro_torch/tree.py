@@ -19,6 +19,20 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_map_with_path(fn, tree, path: Tuple[str, ...] = ()):
+    """``fn(path, leaf)`` over the leaves, ``path`` the tuple of dict
+    keys and ``[i]`` sequence entries leading to the leaf."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (f"[{i}]",))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
 def tree_leaves_with_names(tree, prefix: Tuple[str, ...] = ()
                            ) -> List[Tuple[str, object]]:
     """(leaf name, leaf) pairs in leaf order: the path of dict keys and

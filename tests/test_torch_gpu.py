@@ -320,3 +320,43 @@ def test_lm_trainer_restart_on_card(dev, tmp_path, monkeypatch):
         torch.use_deterministic_algorithms(False)
     assert [r["step"] for r in failed] == list(range(6))
     assert [r["loss"] for r in failed] == [r["loss"] for r in plain]
+
+
+@pytest.mark.parametrize("arch", ["grok1_314b", "deepseek_v2_lite_16b"])
+def test_moe_forward_on_a_1x1_mesh_equals_plain(dev, arch):
+    """The moe smoke config's forward with DTensor parameters on a 1x1
+    DeviceMesh (an NCCL world of one; the MoE local_map dispatch and
+    combine) equals the plain forward on the card."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.distributed import hints, sharding
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as tt
+
+    cfg = dataclasses.replace(registry.smoke_config(arch), dtype="float32")
+    params = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             SyntheticTokens(cfg, 32, 2, seed=1).batch(0).items()}
+    mesh, _, started = train.start_mesh("1x1", dev)
+    try:
+        with torch.no_grad():
+            plain, _ = tt.forward(cfg, params, batch)
+            steps.set_mesh_hints(mesh)
+            dp = steps.place(params, sharding.param_shardings(cfg, mesh,
+                                                              params))
+            db = steps.place(batch, sharding.batch_shardings(cfg, mesh,
+                                                             batch))
+            with implicit_replication():
+                got, _ = tt.forward(cfg, dp, db)
+        got = got.full_tensor()
+    finally:
+        hints.clear()
+        if started:
+            dist.destroy_process_group()
+    assert float((got - plain).abs().max()) <= \
+        1e-6 * float(plain.abs().max())

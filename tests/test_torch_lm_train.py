@@ -197,9 +197,10 @@ def test_fail_at_resumes_from_checkpoint_with_the_same_losses(
 
 def test_mesh_and_prove_are_refused_as_the_reference_does(capsys,
                                                           smoke_registry):
-    with pytest.raises(SystemExit, match="item F"):
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         ttrain.main(SMOKE + ["--device", "cpu", "--mesh", "2x1"])
     assert ttrain.parse_mesh("1x1") == (1, 1)
+    assert ttrain.parse_mesh("2x16x16") == (2, 16, 16)
     with pytest.raises(SystemExit, match="bad --mesh"):
         ttrain.parse_mesh("4")
     with pytest.raises(SystemExit) as exc:

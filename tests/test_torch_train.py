@@ -70,10 +70,11 @@ def test_trainer_reproduces_reference_window_proofs(hooks, case, capsys):
 
 
 def test_trainer_exits_on_unported_paths():
-    """The LM families train now; what is still refused (a mesh of more
-    than one device) names the ROADMAP item it waits on."""
+    """Every path is ported; what is still refused is a mesh larger than
+    the world the trainer was started in (outside torchrun, one rank),
+    with a message that says how to start it."""
     base = ["--device", "cpu", "--steps", "1"]
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, item F"):
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 256"):
         train.main(base + ["--arch", "qwen3-0.6b", "--mesh", "16x16"])
 
 
