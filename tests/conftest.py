@@ -26,6 +26,11 @@ def pytest_configure(config):
         "markers",
         "gpu: needs a CUDA device; the test skips itself without one "
         "(run the marked tests on the card with `-m gpu`).")
+    config.addinivalue_line(
+        "markers",
+        "slow: a reference test that spends over a minute in XLA CPU "
+        "compiles; listed in `SLOW` in the repo-root conftest.py, skipped "
+        "unless selected with `-m slow`.")
 
 
 @pytest.fixture

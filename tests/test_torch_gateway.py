@@ -12,6 +12,7 @@ the per-label generator cache under many threads, which the pool's
 workers share."""
 import dataclasses
 import functools
+import inspect
 import os
 import sys
 import threading
@@ -59,7 +60,9 @@ def _wait(pred, timeout=600):
     t0 = time.monotonic()
     while not pred():
         if time.monotonic() - t0 > timeout:
-            raise AssertionError("condition not reached before timeout")
+            raise AssertionError(
+                f"not reached within {timeout} s: "
+                f"{inspect.getsource(pred).strip()}")
         time.sleep(0.02)
 
 

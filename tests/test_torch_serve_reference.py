@@ -120,6 +120,29 @@ def _reference_on_host_inverses():
         yield
 
 
+def test_host_batch_inv_equals_the_references():
+    """The binding above changes no value: an inverse is unique, and the
+    reference's own `batch_inv` over FQ, the field `repro.core.zkrelu`
+    inverts in (run op by op, since its jitted form compiles for many
+    minutes on a CPU), gives `_host_batch_inv`'s limbs, including the
+    all-zero output of a batch that holds a zero."""
+    import jax
+    spec = rfield.FQ
+    m = spec.modulus
+    rng = np.random.default_rng(11)
+    xs = [1, 2, m - 1, m - 2] + [int(v) % (m - 1) + 1
+                                 for v in rng.integers(0, m, 5, np.uint64)]
+    outs = []
+    for vals in (xs, xs[:3] + [0] + xs[3:]):
+        a = rfield.encode_ints(spec, np.array(vals, dtype=object))
+        with jax.disable_jit():
+            ref = np.asarray(rfield.batch_inv(spec, a))
+        host = np.asarray(_host_batch_inv(spec, a))
+        np.testing.assert_array_equal(host, ref)
+        outs.append([int(v) for v in rfield.decode(spec, host)])
+    assert outs == [[pow(x, -1, m) for x in xs], [0] * (len(xs) + 1)]
+
+
 def _sha(path):
     with open(path, "rb") as f:
         return hashlib.sha256(f.read()).hexdigest()
