@@ -493,6 +493,7 @@ def phase_kernels(state) -> dict:
         "bytes": 8 * n_main, "ops": (SHA256_OPS + 6 * MODMUL_OPS) * n_main}
     res["pow_mul"] = _bench_pow_mul(rng, dev)
     res["qmatmul"] = _bench_qmatmul(rng, dev)
+    res["msm"] = _bench_msm(rng, dev)
     for name, r_ in res.items():
         ok &= r_["max_abs_err"] == 0
     state["kernel_bench"] = res
@@ -530,6 +531,65 @@ def _bench_pow_mul(rng, dev) -> dict:
             "plain_ms": plain_ms, "plain_n": n_cmp,
             "exponents": [1, e_main], "modmuls_per_word": mm,
             "bytes": 24 * n_main, "ops": MODMUL_OPS * mm * n_main}
+
+
+#: the full-width merged opening's length (fcnn-zkdl-16l at depth 2)
+MSM_N = 1 << 28
+
+
+def _bench_msm(rng, dev) -> dict:
+    """The msm kernel against the torch-op Pippenger
+    (`group.msm_many_plain`) on the same card tensors, bit for bit, at
+    1 to 2^20 terms and at one 2^28 row (exponents below q, with 0, 1
+    and q - 1), then timed at that row and at round 1 of the full-width
+    merged pair IPA: two rows of 2^28 terms, each two 2^27 halves read
+    in place, against the plain path's two concatenated rows.  Bound:
+    16 bytes a term, or one Montgomery product a term (as window_mfu
+    counts); the design's own products (61 squarings shared by K terms,
+    one selected multiply a term and bit) beside it."""
+    import torch
+    from repro_torch.core import group
+    from repro_torch.field import FQ
+    from repro_torch.kernels import msm as km
+
+    errs = {}
+    for n in (1, 33, 4097, 1 << 20):
+        pts = group.derive_generators(b"zkdl/msm-bench", n, dev)
+        e = _rand_field(FQ, n, rng, dev)[None] if n >= 3 else \
+            torch.ones((1, n), dtype=torch.int64, device=dev)
+        errs[n] = _max_err(group.msm_many(pts, e),
+                           group.msm_many_plain(pts, e))
+    n, n2 = MSM_N, MSM_N // 2
+    gg = group.derive_generators(b"zkdl/msm-bench", n, dev)
+    ea = _rand_field(FQ, n, rng, dev)
+    errs[n] = _max_err(group.msm(gg, ea), group.msm_many_plain(gg, ea[None]))
+    ms = cuda_ms(lambda: group.msm(gg, ea), 3)
+    plain_ms = cuda_ms(lambda: group.msm_many_plain(gg, ea[None]), 1)
+    hh = group.derive_generators(b"zkdl/msm-bench-h", n, dev)
+    eb = _rand_field(FQ, n, rng, dev)
+    segs = [([gg[n2:], gg[:n2]], [ea[:n2], ea[n2:]]),
+            ([hh[:n2], hh[n2:]], [eb[n2:], eb[:n2]])]
+
+    def plain_round():
+        return torch.stack([
+            group.msm_many_plain(torch.cat([gg[n2:], hh[:n2]]),
+                                 torch.cat([ea[:n2], eb[n2:]])[None])[0],
+            group.msm_many_plain(torch.cat([gg[:n2], hh[n2:]]),
+                                 torch.cat([ea[n2:], eb[:n2]])[None])[0]])
+    errs["round1"] = _max_err(group.msm_segments(segs), plain_round())
+    round_ms = cuda_ms(lambda: group.msm_segments(segs), 3)
+    round_plain_ms = cuda_ms(plain_round, 1)
+    del gg, hh, ea, eb, segs
+    k, threads = km.geometry(n, 1)
+    products = 61 + 61 / k
+    return {"n": n, "max_abs_err": max(errs.values()), "errs": errs,
+            "ms": ms, "plain_ms": plain_ms, "round1_ms": round_ms,
+            "round1_plain_ms": round_plain_ms, "round1_terms": 2 * n,
+            "terms_per_thread": k, "threads_per_block": threads,
+            "bytes": 16 * n, "ops": MODMUL_OPS * n,
+            "design_products_per_term": products,
+            "design_ops": MODMUL_OPS * products * n,
+            "design_bound_ms": bound_ms(0, MODMUL_OPS * products * n)[0]}
 
 
 def _int16(rng, shape, edges: bool = True):
@@ -2299,6 +2359,8 @@ KERNEL_META = {
                 "src/repro/kernels/sumcheck_fold/kernel.py:144"),
     "qmatmul": ("src/repro_torch/kernels/qmatmul/qmatmul.cu",
                 "src/repro/kernels/qmatmul/kernel.py:93"),
+    "msm": ("src/repro_torch/kernels/msm/msm.cu",
+            "none (the reference's MSM is jnp code, src/repro/core/group.py)"),
 }
 
 

@@ -5,13 +5,18 @@ p = 2q + 1.  A group element is one FP word in Montgomery form; the
 group operation is ``mont_mul(FP, ., .)`` (the modmul kernel on the
 card) and exponents are standard-form FQ words.
 
-MSM is a sort-based Pippenger in torch ops: per window, the
-(row, digit) bucket keys of all terms are sorted (`torch.sort`), the
-points gathered in that order, and the per-bucket products formed by a
-log-depth segmented tree of modmul launches (`_segment_products`).  The
-group is commutative and every product is exact, so any bucket or term
-order gives the reference's values bit for bit; padding the reference
-applies to bound its compiled shapes is left out.
+MSM on a CUDA tensor is the msm kernel (`repro_torch.kernels.msm`): one
+launch (two for rows longer than a block's tile) of a joint
+square-and-multiply over every row.  On a CPU tensor it is the plain
+version, a sort-based Pippenger in torch ops (`msm_many_plain`,
+`msm_ragged_plain`): per window, the (row, digit) bucket keys of all
+terms are sorted (`torch.sort`), the points gathered in that order, and
+the per-bucket products formed by a log-depth segmented tree of modmul
+launches (`_segment_products`); rows of at most 32 terms multiply out
+`g_pow` instead.  The group is commutative and every product is exact,
+so any algorithm, bucket or term order gives the reference's values bit
+for bit; padding the reference applies to bound its compiled shapes is
+left out.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 
 from repro_torch.field import (FP, FQ, GROUP_GEN, decode, from_mont, mont_mul,
                                pow_const)
+from repro_torch.kernels import msm as _kernel_msm
 from repro_torch.kernels.generators import derive as _kernel_derive
 
 P = FP.modulus
@@ -209,7 +215,21 @@ def _pippenger(points: torch.Tensor, exps: torch.Tensor, rows: torch.Tensor,
 def msm_many(points: torch.Tensor, exps_std: torch.Tensor, nbits: int = 61,
              window: int | None = None) -> torch.Tensor:
     """R independent MSMs: (R, n) exponents (standard form) against (R, n)
-    points, or one (n,) point vector shared by every row -> (R,)."""
+    points, or one (n,) point vector shared by every row -> (R,).
+
+    On the card the msm kernel, which ignores ``window``; on the CPU
+    `msm_many_plain`."""
+    if exps_std.device.type != "cpu":
+        return _kernel_msm.msm([(points, exps_std)], nbits)
+    return msm_many_plain(points, exps_std, nbits, window)
+
+
+def msm_many_plain(points: torch.Tensor, exps_std: torch.Tensor,
+                   nbits: int = 61, window: int | None = None
+                   ) -> torch.Tensor:
+    """`msm_many` in torch ops, on any device: rows of at most
+    NAIVE_MAX_TERMS terms by `g_pow`, longer ones by `_pippenger` with
+    digits of ``window`` bits (default: `_window_for` the row length)."""
     assert exps_std.dim() == 2
     r, n = exps_std.shape
     assert points.shape in ((n,), (r, n)), (points.shape, exps_std.shape)
@@ -220,8 +240,9 @@ def msm_many(points: torch.Tensor, exps_std: torch.Tensor, nbits: int = 61,
         return tree_prod(g_pow(points, exps_std, nbits=nbits), dim=1)
     if r > 1 and n >= BIG_ROW_TERMS:
         return torch.stack([
-            msm(points if points.dim() == 1 else points[i], exps_std[i],
-                nbits=nbits, window=window) for i in range(r)])
+            msm_many_plain(points if points.dim() == 1 else points[i],
+                           exps_std[i][None], nbits=nbits, window=window)[0]
+            for i in range(r)])
     w = window if window is not None else _window_for(n)
     rows = torch.arange(r, dtype=torch.int64, device=dev)[:, None]
     return _pippenger(points, exps_std, rows, r, nbits, w,
@@ -236,10 +257,28 @@ def msm(points: torch.Tensor, exps_std: torch.Tensor, nbits: int = 61,
     return msm_many(points, exps_std[None], nbits=nbits, window=window)[0]
 
 
+def msm_segments(segments, nbits: int = 61) -> torch.Tensor:
+    """R MSMs whose rows are up to three (points, exps) segments laid end
+    to end, read in place (`repro_torch.kernels.msm.msm` says what a
+    segment may be) -> (R,), each row equal to its concatenated row's
+    MSM.  On the CPU the rows are concatenated for `msm_many_plain`."""
+    return _kernel_msm.msm(segments, nbits)
+
+
 def msm_ragged(points: torch.Tensor, exps_std: torch.Tensor,
                rows: torch.Tensor, n_rows: int) -> torch.Tensor:
     """MSMs of rows of different lengths, flattened: term i belongs to row
-    rows[i] -> (n_rows,) products (no padding terms)."""
+    rows[i] -> (n_rows,) products (no padding terms).  On the card the
+    msm kernel, with each row's terms together (``rows`` non-decreasing);
+    on the CPU `msm_ragged_plain`."""
+    if exps_std.device.type != "cpu":
+        return _kernel_msm.msm_ragged(points, exps_std, rows, n_rows)
+    return msm_ragged_plain(points, exps_std, rows, n_rows)
+
+
+def msm_ragged_plain(points: torch.Tensor, exps_std: torch.Tensor,
+                     rows: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """`msm_ragged` by `_pippenger`, on any device."""
     w = _window_for(max(1, exps_std.numel() // n_rows))
     return _pippenger(points, exps_std, rows, n_rows, 61, w,
                       shared_points=False)

@@ -12,9 +12,10 @@ Two variants, both log-size and linear-prover-time:
 Honest-verifier zero knowledge comes from per-round blinds on L/R plus
 a final sigma opening.
 
-Each prover round is one MSM each for L and R (the two half-MSMs per
-side as one row; the u^{c} claim term and the h^{rho} blind as a
-two-term tail), one host transfer for the transcript, and the folds:
+Each pair prover round is one two-row MSM for L and R (per row the two
+half-MSMs and the u^{c} claim term and h^{rho} blind as a two-term
+tail, three segments read in place), one host transfer for the
+transcript, and the folds:
 the scalar halves through the `fold_halves` kernel, the generator
 halves through the `pow_mul` kernel: in the pair rounds as one merge
 g_lo * g_hi^{e} (its e_lo = 1 case) with the outer exponent deferred
@@ -99,14 +100,14 @@ def _s_vector(n: int, alphas: List[int], low_exp_is_inv: bool,
     return s
 
 
-def _lr_extras(up, h, c_l: torch.Tensor, c_r: torch.Tensor, rho_l: int,
-               rho_r: int) -> torch.Tensor:
-    """The up^{claim} * h^{rho} tails of both L/R as a two-row MSM."""
-    pts = torch.stack([up, h])
+def _lr_tail(up, h, c_l: torch.Tensor, c_r: torch.Tensor, rho_l: int,
+             rho_r: int):
+    """The up^{claim} * h^{rho} tails of L and R as one MSM segment: the
+    shared points (up, h) and a (2, 2) block of exponents."""
     exps = torch.stack([
         torch.stack([c_l, torch.tensor(rho_l, device=up.device)]),
         torch.stack([c_r, torch.tensor(rho_r, device=up.device)])])
-    return group.msm_many(pts, exps)
+    return torch.stack([up, h]), exps
 
 
 def _claims(a: torch.Tensor, b: torch.Tensor):
@@ -125,31 +126,31 @@ def _pair_round_lr(gg, hh, a, b, up, h_blind, rho_l: int, rho_r: int,
     c_l, c_r = _claims(a, b)
     a_std = mont_mul(FQ, a, gam_g)
     b_std = mont_mul(FQ, b, gam_h)
-    main = _lr_msms(gg, hh, a_std, b_std[n2:], b_std[:n2])
-    return group.g_mul(main, _lr_extras(up, h_blind, c_l, c_r, rho_l, rho_r))
+    return _lr_msms(gg, hh, a_std, b_std[n2:], b_std[:n2],
+                    _lr_tail(up, h_blind, c_l, c_r, rho_l, rho_r))
 
 
-def _lr_msms(gg, hh, ea, eb_l, eb_r) -> torch.Tensor:
-    """The cross-half MSMs of a pair round, L = gg_hi^{ea_lo} hh_lo^{eb_l}
-    and R = gg_lo^{ea_hi} hh_hi^{eb_r}, one after the other so that only
-    one row's concatenated bases and exponents are alive at a time."""
+def _lr_msms(gg, hh, ea, eb_l, eb_r, tail) -> torch.Tensor:
+    """L = gg_hi^{ea_lo} hh_lo^{eb_l} tail_0 and
+    R = gg_lo^{ea_hi} hh_hi^{eb_r} tail_1 as one two-row MSM of three
+    segments that read the halves in place (eb_l and eb_r are the two
+    halves of one vector, in either order)."""
     n2 = ea.shape[0] // 2
-    return torch.stack([
-        group.msm(torch.cat([gg[n2:], hh[:n2]]), torch.cat([ea[:n2], eb_l])),
-        group.msm(torch.cat([gg[:n2], hh[n2:]]), torch.cat([ea[n2:], eb_r]))])
+    return group.msm_segments([([gg[n2:], gg[:n2]], [ea[:n2], ea[n2:]]),
+                               ([hh[:n2], hh[n2:]], [eb_l, eb_r]), tail])
 
 
 def _pair_round_lr_w(gg, h_base, w, a, b, up, h_blind, rho_l: int,
                      rho_r: int) -> torch.Tensor:
     """First pair round with the H basis held as h_base^{w} (zkReLU's
-    H' = H^{1/e}, never materialized): the weight rides the exponents."""
+    H' = H^{1/e}, never materialized): the weight rides the exponents,
+    w_lo * b_hi and w_hi * b_lo as the halves of one vector."""
     n2 = a.shape[0] // 2
     c_l, c_r = _claims(a, b)
     a_std = from_mont(FQ, a)
-    wl = from_mont(FQ, mont_mul(FQ, w[:n2], b[n2:]))
-    wr = from_mont(FQ, mont_mul(FQ, w[n2:], b[:n2]))
-    main = _lr_msms(gg, h_base, a_std, wl, wr)
-    return group.g_mul(main, _lr_extras(up, h_blind, c_l, c_r, rho_l, rho_r))
+    wb = from_mont(FQ, mont_mul(FQ, w, b.roll(n2)))
+    return _lr_msms(gg, h_base, a_std, wb[:n2], wb[n2:],
+                    _lr_tail(up, h_blind, c_l, c_r, rho_l, rho_r))
 
 
 def _pair_fold_first(a, b, g_table, h_table, w, al: int, ali: int,
@@ -200,7 +201,8 @@ def _open_round_lr(gens, a, b, up, h, rho_l: int, rho_r: int
     a_std = from_mont(FQ, a)
     main = torch.stack([group.msm(gens[n2:], a_std[:n2]),
                         group.msm(gens[:n2], a_std[n2:])])
-    return group.g_mul(main, _lr_extras(up, h, c_l, c_r, rho_l, rho_r))
+    tail = group.msm_many(*_lr_tail(up, h, c_l, c_r, rho_l, rho_r))
+    return group.g_mul(main, tail)
 
 
 def _open_fold(a, b, gens, al: int, ali: int):

@@ -15,6 +15,12 @@
                          launch on the int8 tensor cores (replaces
                          ``qmatmul_digits`` and its wrapper's assembly);
                          every witness matmul on the card runs through it.
+* ``msm``             -- multi-scalar multiplication, the port's own
+                         kernel (the reference's MSM is jnp code): on the
+                         card every MSM of `core.group` (commits, IPA
+                         rounds, the verifier's multi-exponentiations)
+                         runs through it; on the CPU the sort-based
+                         Pippenger in torch ops stays.
 
 Each directory holds the ``.cu`` source and an ``ops.py`` with the
 wrapper, its plain PyTorch version (used for CPU tensors, and as the
@@ -27,13 +33,14 @@ from __future__ import annotations
 def _wrappers() -> dict:
     from repro_torch.kernels.generators.ops import derive
     from repro_torch.kernels.modmul.ops import modmul
+    from repro_torch.kernels.msm.ops import msm
     from repro_torch.kernels.qmatmul.ops import qmatmul_i64
     from repro_torch.kernels.sumcheck_fold.ops import (fold, fold_halves,
                                                        pow_mul_halves)
     from repro_torch.kernels.validity_tables.ops import build_tables
     return {"modmul": modmul, "fold": fold, "fold_halves": fold_halves,
             "validity_tables": build_tables, "generators": derive,
-            "pow_mul": pow_mul_halves, "qmatmul": qmatmul_i64}
+            "pow_mul": pow_mul_halves, "qmatmul": qmatmul_i64, "msm": msm}
 
 
 def launch_counts() -> dict:

@@ -32,6 +32,7 @@ SOURCES = {
     "validity_tables": "validity_tables/validity_tables.cu",
     "generators": "generators/generators.cu",
     "qmatmul": "qmatmul/qmatmul.cu",
+    "msm": "msm/msm.cu",
 }
 HEADERS = ("mont64.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,6 +55,8 @@ SIGNATURES = {
     "zk_validity_tables": (_P,) * 10 + (_I64,) + (_U64,) * 6 + (_P,),
     "zk_derive_generators": (_P, _INT, _I64, _I64, _P, _U64, _U64, _U64,
                              _P),
+    "zk_msm": (_P, _INT, _P, _P, _I64, _I64, _I64, _INT, _INT, _U64, _U64,
+               _U64, _U64, _P, _P, _P),
 }
 
 _lock = threading.Lock()

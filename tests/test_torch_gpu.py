@@ -134,6 +134,137 @@ def test_qmatmul_kernel_exact_at_int16_extremes(dev, fill):
         assert torch.equal(qk.qmatmul_i64(a.to(dev), b.to(dev)).cpu(), want)
 
 
+# -- the msm kernel against the torch-op Pippenger on the same tensors ------
+
+_EDGE_EXPS = [0, 1, FQ.modulus - 1, (1 << 61) - 1]
+
+
+def _exps(shape, seed, dev, nbits=61):
+    """Standard-form exponents below 2^nbits, the first four the edges
+    0, 1, q - 1 and 2^61 - 1 (cut to nbits)."""
+    rng = np.random.default_rng(seed)
+    e = rng.integers(0, FQ.modulus, shape, dtype=np.uint64) % FQ.modulus
+    e = torch.as_tensor(e.astype(np.int64)).reshape(-1)
+    k = min(4, e.numel())
+    e[:k] = torch.tensor(_EDGE_EXPS[:k])
+    e &= (1 << nbits) - 1
+    return e.reshape(shape).to(dev)
+
+
+def _points(n, dev, label=b"zkdl/msm-test"):
+    from repro_torch.core import group
+    return group.derive_generators(label, n, dev)
+
+
+def _msm_launches():
+    return kernels.launch_counts()["msm"]
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 4097, (1 << 20) + 3])
+@pytest.mark.parametrize("nbits", [61, 17])
+def test_msm_kernel_one_row_matches_pippenger(dev, n, nbits):
+    from repro_torch.core import group
+    from repro_torch.kernels import msm as km
+    pts, e = _points(n, dev), _exps((1, n), n, dev, nbits)
+    before = _msm_launches()
+    got = group.msm_many(pts, e, nbits=nbits)
+    assert _msm_launches() > before
+    assert torch.equal(got, group.msm_many_plain(pts, e, nbits=nbits))
+    assert torch.equal(got, km.msm_plain([(pts, e)], nbits))
+
+
+@pytest.mark.parametrize("rows", [2, 64])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "own"])
+def test_msm_kernel_rows_match_pippenger(dev, rows, shared):
+    from repro_torch.core import group
+    n = 1000
+    e = _exps((rows, n), rows, dev)
+    pts = _points(n if shared else rows * n, dev)
+    if not shared:
+        pts = pts.view(rows, n)
+    assert torch.equal(group.msm_many(pts, e),
+                       group.msm_many_plain(pts, e))
+
+
+def test_msm_kernel_ragged_rows_like_commit_many(dev):
+    """Rows laid out as `commit_many` lays them out (values, then a
+    one-term blind tail), plus a row with no terms and a blind-only
+    row."""
+    from repro_torch.core import group, pedersen
+    key = pedersen.make_key(b"msm-test", 5000, dev)
+    lens = [4097, 0, 1, 33, 0]
+    pts, exps, ids = [], [], []
+    for r, n in enumerate(lens):
+        if r == 1:
+            continue                    # row 1 has no terms at all
+        pts += [key.gens[:n], key.h.reshape(1)]
+        exps += [_exps((n,), r, dev), _exps((1,), 100 + r, dev)]
+        ids.append(torch.full((n + 1,), r, dtype=torch.int64, device=dev))
+    pts, exps, ids = torch.cat(pts), torch.cat(exps), torch.cat(ids)
+    before = _msm_launches()
+    got = group.msm_ragged(pts, exps, ids, len(lens))
+    assert _msm_launches() > before
+    assert torch.equal(got, group.msm_ragged_plain(pts, exps, ids,
+                                                   len(lens)))
+    assert int(got[1]) == group.identity(dev).item()
+
+
+@pytest.mark.parametrize("n2", [1, 300, 1 << 17])
+def test_msm_kernel_segments_match_concatenated_rows(dev, n2):
+    """Two and three segments read in place (halves in either order, a
+    shared two-point tail) against the rows concatenated."""
+    from repro_torch.core import group
+    g, h = _points(2 * n2, dev, b"msm-g"), _points(2 * n2, dev, b"msm-h")
+    ea, eb = _exps((2 * n2,), 1, dev), _exps((2 * n2,), 2, dev)
+    tail = (_points(2, dev, b"msm-t"), _exps((2, 2), 3, dev))
+    two = [([g[n2:], g[:n2]], [ea[:n2], ea[n2:]]),
+           ([h[:n2], h[n2:]], [eb[n2:], eb[:n2]])]
+    rows = [(torch.cat([g[n2:], h[:n2]]), torch.cat([ea[:n2], eb[n2:]])),
+            (torch.cat([g[:n2], h[n2:]]), torch.cat([ea[n2:], eb[:n2]]))]
+    want2 = torch.stack([group.msm_many_plain(p, e[None])[0]
+                         for p, e in rows])
+    assert torch.equal(group.msm_segments(two), want2)
+    want3 = torch.stack([
+        group.msm_many_plain(torch.cat([p, tail[0]]),
+                             torch.cat([e, tail[1][i]])[None])[0]
+        for i, (p, e) in enumerate(rows)])
+    assert torch.equal(group.msm_segments(two + [tail]), want3)
+
+
+def test_prove_on_card_gives_golden_bytes_through_msm_kernel(dev,
+                                                             monkeypatch):
+    """The uniform 2x4 MLP (QuantConfig(16, 4), seed 7, T = 1) proved on
+    the card hashes to the reference's recorded digest and verifies from
+    bytes, with every MSM in the kernel: the torch-op Pippenger is made
+    to fail if anything calls it."""
+    import hashlib
+
+    from repro_torch.core import group
+    from repro_torch.core.pipeline import (GraphBuilder, compile,
+                                           encode_proof, prove_session,
+                                           verify_bytes)
+    from repro_torch.core.quantfc import QuantConfig, synthetic_sgd_trajectory
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the torch-op MSM ran on the card")
+    for name in ("msm_many_plain", "msm_ragged_plain", "_pippenger",
+                 "_segment_products"):
+        monkeypatch.setattr(group, name, refuse)
+    qc = QuantConfig(16, 4)
+    graph = GraphBuilder(batch=2).input(4).dense(4).relu().dense(4).relu() \
+        .output()
+    pk, vk = compile(graph, qc, n_steps=1, device=dev)
+    wits = synthetic_sgd_trajectory(1, 2, 2, 4, qc, seed=7, device=dev)
+    kernels.reset_launch_counts()
+    raw = encode_proof(prove_session(pk, wits, np.random.default_rng(7)))
+    assert _msm_launches() > 0
+    assert hashlib.sha256(raw).hexdigest() == (
+        "a538160f1da619bd39439420f78d24af9089dd1eacd770f3ce24d76dd80c2422")
+    before = _msm_launches()
+    assert verify_bytes(vk, raw)
+    assert _msm_launches() > before
+
+
 def test_scbd_on_card_gives_golden_digest(dev):
     """SC-BD's wiring tables built and summed on the card: the proof of
     the audit-domain golden tensor hashes to the reference's digest

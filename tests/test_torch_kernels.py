@@ -197,3 +197,82 @@ def test_wrappers_refuse_other_devices_and_count_only_launches():
         fk.fold_halves(meta, 5, 7)
     with pytest.raises(ValueError):
         gk.derive(b"zkdl", 0, 4, "meta")
+
+
+def _msm_inputs(n: int, rows: int, seed: int):
+    from repro_torch.core import group
+    rng = np.random.default_rng(seed)
+    exps = torch.as_tensor(rng.integers(0, FQ.modulus, (rows, n),
+                                        dtype=np.uint64).astype(np.int64))
+    return group.derive_generators(b"msm-cpu-test", rows * n, "cpu"), exps
+
+
+def test_msm_wrapper_takes_plain_on_cpu_and_counts_only_launches():
+    """CPU tensors take the torch-op Pippenger (no launch counted); any
+    other device must launch the kernel or raise."""
+    from repro_torch.core import group
+    from repro_torch.kernels import msm as km
+    pts, exps = _msm_inputs(40, 2, 1)
+    kernels.reset_launch_counts()
+    got = km.msm([(pts[:40], exps)])
+    assert torch.equal(got, group.msm_many_plain(pts[:40], exps))
+    assert torch.equal(group.msm_many(pts[:40], exps), got)
+    ids = torch.tensor([0] * 30 + [2] * 10)
+    assert torch.equal(
+        km.msm_ragged(pts[:40], exps[0], ids, 3),
+        group.msm_ragged_plain(pts[:40], exps[0], ids, 3))
+    assert kernels.launch_counts()["msm"] == 0
+    meta = torch.empty(2, 8, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        km.msm([(meta[0], meta)])
+    with pytest.raises(ValueError):
+        km.msm_ragged(meta[0], meta[0], meta[1], 2)
+    assert kernels.launch_counts()["msm"] == 0
+
+
+@pytest.mark.parametrize("case", ["dtype", "rows", "terms", "strided",
+                                  "spacing", "segments", "nbits",
+                                  "ragged_2d", "ragged_len"])
+def test_msm_wrapper_refuses_malformed_inputs(case):
+    from repro_torch.kernels import msm as km
+    pts, exps = _msm_inputs(16, 3, 2)
+    v, exps = pts[:16], exps[:2]
+    bad = {
+        "dtype": lambda: km.msm([(v, exps.to(torch.int32))]),
+        "rows": lambda: km.msm([(pts[:48].view(3, 16), exps)]),
+        "terms": lambda: km.msm([(v[:15], exps)]),
+        "strided": lambda: km.msm([(v, exps.T.contiguous().T)]),
+        "spacing": lambda: km.msm([([v[:8], v[9:]], exps[:, :8])]),
+        "segments": lambda: km.msm([(v, exps)] * 4),
+        "nbits": lambda: km.msm([(v, exps)], nbits=65),
+        "ragged_2d": lambda: km.msm_ragged(v, exps, exps, 2),
+        "ragged_len": lambda: km.msm_ragged(v, exps[0],
+                                            torch.zeros(15, dtype=torch.int64),
+                                            1),
+    }[case]
+    with pytest.raises((ValueError, TypeError)):
+        bad()
+
+
+@pytest.mark.parametrize("n2", [1, 5, 40])
+def test_msm_segments_equal_concatenated_rows_on_cpu(n2):
+    """Halves read in place in either order, and a shared two-point tail,
+    give each row's concatenated MSM (as the pair IPA's L and R use
+    them)."""
+    from repro_torch.core import group
+    pts, exps = _msm_inputs(2 * n2, 3, 3 + n2)
+    g, h, t = pts[:2 * n2], pts[2 * n2:4 * n2], pts[4 * n2:4 * n2 + 2]
+    ea, eb = exps[0], exps[1]
+    et = torch.stack([exps[2, :2], exps[2, -2:] >> 7])
+    segs = [([g[n2:], g[:n2]], [ea[:n2], ea[n2:]]),
+            ([h[:n2], h[n2:]], [eb[n2:], eb[:n2]]), (t, et)]
+    want = torch.stack([
+        group.msm(torch.cat([g[n2:], h[:n2], t]),
+                  torch.cat([ea[:n2], eb[n2:], et[0]])),
+        group.msm(torch.cat([g[:n2], h[n2:], t]),
+                  torch.cat([ea[n2:], eb[:n2], et[1]]))])
+    assert torch.equal(group.msm_segments(segs), want)
+    assert torch.equal(group.msm_segments(segs[:2]), torch.stack([
+        group.msm(torch.cat([g[n2:], h[:n2]]), torch.cat([ea[:n2], eb[n2:]])),
+        group.msm(torch.cat([g[:n2], h[n2:]]),
+                  torch.cat([ea[n2:], eb[:n2]]))]))
