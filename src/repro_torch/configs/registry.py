@@ -1,5 +1,6 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here,
-with the reference's module names and aliases (`repro.configs.registry`)."""
+with the reference's module names and aliases (`repro.configs.registry`),
+and the port's own provable configurations (`PROOF_ARCHS`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -37,12 +38,18 @@ _ALIASES.update({
     "fcnn-zkdl-16l": "fcnn_zkdl_16l",
 })
 
+#: provable configurations the reference does not have
+PROOF_ARCHS: List[str] = [
+    "dlrm_top_mlp_criteo1tb",  # DLRM's top MLP, Criteo Terabyte widths
+]
+_PROOF_ALIASES = {a.replace("_", "-"): a for a in PROOF_ARCHS}
+
 
 def _module(name: str):
-    mod_name = _ALIASES.get(name, name)
-    if mod_name not in ARCHS:
+    mod_name = _ALIASES.get(name) or _PROOF_ALIASES.get(name, name)
+    if mod_name not in ARCHS + PROOF_ARCHS:
         raise LookupError(f"unknown architecture {name!r}; known: "
-                          f"{sorted(_ALIASES)}")
+                          f"{sorted(_ALIASES) + sorted(_PROOF_ALIASES)}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
 

@@ -34,6 +34,7 @@ from repro_torch.core.sumcheck import (SumcheckProof, combine_final,
 from repro_torch.core.transcript import Transcript
 from repro_torch.core.pipeline.challenges import (ChallengeSchedule,
                                                   instance_slices)
+from repro_torch.core.pipeline import profile as profile_mod
 from repro_torch.core.pipeline.config import PipelineConfig
 from repro_torch.core.pipeline.graph import MatmulInstance
 from repro_torch.core.pipeline.tables import dec_scalar, fix_cols, fix_rows
@@ -127,47 +128,56 @@ def pair_final(cfg: PipelineConfig, finals: List[List[int]], family: str,
 
 
 def prove(cfg: PipelineConfig, tabs: FieldTables, ch: ChallengeSchedule,
-          t: Transcript) -> MatmulOut:
+          t: Transcript, prof=None) -> MatmulOut:
+    """Every family's bucket sumchecks, each family timed as the
+    ``sumcheck-<family>`` sub-phase of ``prof`` when one is given."""
     fams: Dict[str, FamilyOut] = {}
     for fam in ("fwd", "bwd", "gw"):
-        label = FAMILY_LABELS[fam]
-        buckets = cfg.graph.buckets[fam]
-        glob = ch.glob(fam)
-        fixed = []                 # per bucket: (tables, products, coefs)
-        for bucket in buckets:
-            tables, products = [], []
-            for ti in range(cfg.n_steps):
-                for inst in bucket.instances:
-                    u_cols, u_rows, _ = instance_slices(inst, glob)
-                    left, right = _fix_operands(tabs, inst, ti,
-                                                u_cols, u_rows)
-                    p = len(tables)
-                    tables += [left, right]
-                    products.append((p, p + 1))
-            fixed.append((tables, products, bucket_coefs(cfg, ch, bucket)))
-
-        # the per-bucket claim split is only transmitted (and only
-        # needed) when the family has more than one bucket; a single
-        # bucket's claim is implicit in the a1..a6 openings
-        claims = []
-        if len(buckets) > 1:
-            for tables, products, coefs in fixed:
-                acc = 0
-                for (i, j), c in zip(products, coefs):
-                    acc = (acc + c * dec_scalar(fdot(tables[i],
-                                                     tables[j]))) % Q_MOD
-                claims.append(acc)
-            t.absorb_ints(label + b"/claims", claims)
-
-        out = FamilyOut(claims=claims, scs=[], finals=[], points=[])
-        for tables, products, coefs in fixed:
-            sc, w, finals = sumcheck_prove(tables, products, t, label,
-                                           coefs=coefs)
-            out.scs.append(sc)
-            out.points.append(w)
-            out.finals.append(finals)
-        fams[fam] = out
+        with profile_mod.subphase(prof, f"sumcheck-{fam}"):
+            fams[fam] = _prove_family(cfg, tabs, ch, t, fam)
     return MatmulOut(fams=fams)
+
+
+def _prove_family(cfg: PipelineConfig, tabs: FieldTables,
+                  ch: ChallengeSchedule, t: Transcript,
+                  fam: str) -> FamilyOut:
+    label = FAMILY_LABELS[fam]
+    buckets = cfg.graph.buckets[fam]
+    glob = ch.glob(fam)
+    fixed = []                 # per bucket: (tables, products, coefs)
+    for bucket in buckets:
+        tables, products = [], []
+        for ti in range(cfg.n_steps):
+            for inst in bucket.instances:
+                u_cols, u_rows, _ = instance_slices(inst, glob)
+                left, right = _fix_operands(tabs, inst, ti,
+                                            u_cols, u_rows)
+                p = len(tables)
+                tables += [left, right]
+                products.append((p, p + 1))
+        fixed.append((tables, products, bucket_coefs(cfg, ch, bucket)))
+
+    # the per-bucket claim split is only transmitted (and only
+    # needed) when the family has more than one bucket; a single
+    # bucket's claim is implicit in the a1..a6 openings
+    claims = []
+    if len(buckets) > 1:
+        for tables, products, coefs in fixed:
+            acc = 0
+            for (i, j), c in zip(products, coefs):
+                acc = (acc + c * dec_scalar(fdot(tables[i],
+                                                 tables[j]))) % Q_MOD
+            claims.append(acc)
+        t.absorb_ints(label + b"/claims", claims)
+
+    out = FamilyOut(claims=claims, scs=[], finals=[], points=[])
+    for tables, products, coefs in fixed:
+        sc, w, finals = sumcheck_prove(tables, products, t, label,
+                                       coefs=coefs)
+        out.scs.append(sc)
+        out.points.append(w)
+        out.finals.append(finals)
+    return out
 
 
 def family_targets(cfg: PipelineConfig, op: Dict[str, int]) -> Dict[str, int]:

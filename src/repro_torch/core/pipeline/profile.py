@@ -18,6 +18,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core.pipeline.graph import FAMILIES
+
 
 def _sync() -> None:
     """Wait for queued card work, so a phase's seconds are its own
@@ -38,7 +40,11 @@ PHASES = ("stack", "commit", "challenges", "matmul", "anchor", "openings")
 # sigma).  Tracked separately from `phases_s` so `accounted_s` (which
 # the --smoke attribution check compares against total_s) never double
 # counts.
-SUB_PHASES = ("claim-combine", "ipa-rounds", "sigma", "zkrelu-validity")
+# The `matmul` phase splits into one sub-phase per relation family, each
+# over all of that family's shape buckets (table fixing, the per-bucket
+# claim split and the batched sumchecks).
+SUB_PHASES = ("claim-combine", "ipa-rounds", "sigma", "zkrelu-validity",
+              "sumcheck-fwd", "sumcheck-bwd", "sumcheck-gw")
 
 
 def subphase(prof, name: str):
@@ -56,6 +62,7 @@ class PhaseProfile:
 
     phases_s: Dict[str, float] = dataclasses.field(default_factory=dict)
     sub_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
     total_s: float = 0.0
 
     @contextlib.contextmanager
@@ -100,4 +107,21 @@ class PhaseProfile:
             sub.update({k: v for k, v in self.sub_s.items()
                         if k not in sub})
             out["sub_phases_s"] = sub
+        if self.counts:
+            out["counts"] = dict(self.counts)
         return out
+
+
+def proof_counts(cfg) -> Dict[str, int]:
+    """What one proof under a `PipelineConfig` holds (the profile's
+    ``counts``): ``buckets``, the shape buckets over the three relation
+    families; ``aux_real``, the unpadded elements of one stacked aux
+    tensor (T x every aux node's batch x width); ``aux_stacked``, that
+    tensor's stacked length; ``validity_positions``, the (row, bit)
+    positions of both zkReLU validity statements."""
+    g = cfg.graph
+    return {"buckets": sum(len(g.buckets[f]) for f in FAMILIES),
+            "aux_real": cfg.n_steps * sum(n.shape[0] * n.shape[1]
+                                          for n in g.aux_nodes),
+            "aux_stacked": cfg.d_stack,
+            "validity_positions": sum(n for _, _, n in cfg.validity_blocks)}

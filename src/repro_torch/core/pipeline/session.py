@@ -26,7 +26,7 @@ from repro_torch.core.pipeline import matmul as matmul_mod
 from repro_torch.core.pipeline import openings as openings_mod
 from repro_torch.core.pipeline.challenges import ChallengeSchedule
 from repro_torch.core.pipeline.config import PipelineKeys
-from repro_torch.core.pipeline.profile import PhaseProfile
+from repro_torch.core.pipeline.profile import PhaseProfile, proof_counts
 from repro_torch.core.pipeline.tables import rand_scalar
 from repro_torch.core.pipeline.witness import (StackedWitness,
                                                build_field_tables,
@@ -172,7 +172,8 @@ class SessionProver:
             e_pi1, e_pi2, e_pi3 = openings_mod.initial_claims(
                 cfg, self.tabs, ch, op, t)
         with prof.phase("matmul"):
-            mat = matmul_mod.prove(cfg, self.tabs, ch, t)        # step (a)
+            mat = matmul_mod.prove(cfg, self.tabs, ch, t,        # step (a)
+                                   prof=prof)
         with prof.phase("anchor"):
             anc = anchor_mod.prove(cfg, self.tabs, ch, mat, t)   # step (b)
         with prof.phase("openings"):
@@ -233,6 +234,7 @@ class ProofSession:
         t0 = time.perf_counter()
         with prof.phase("stack"):
             sw = stack_witnesses(self._steps, self.cfg)
+        prof.counts = proof_counts(self.cfg)
         prover = SessionProver(self.keys, self.rng, profile=prof)
         prover.commit(sw)
         proof = prover.prove(Transcript(self.label))

@@ -26,12 +26,20 @@ process group is NCCL on the card (one card per rank) and gloo with
     python -m repro_torch.launch.train --arch fcnn-zkdl-16l \
         --layers 2 --d-model 8 --global-batch 4 --steps 8 \
         --prove-window 4 [--widths 16,8,4,2] [--no-verify] [--device cpu]
+    python -m repro_torch.launch.train --arch dlrm-top-mlp-criteo1tb \
+        --global-batch 512 --steps 1 --prove-window 1 --init fan-in \
+        --lr-shift 16
 
 A provable family proves while it trains: one aggregated proof per
 ``--prove-window`` steps over the family's layer graph, as the
 reference's `run_zkdl_train`: weights and data are drawn from the same
 seeded numpy stream in the same order, and that stream then feeds every
 window's blinds, so the proofs are byte-identical to the reference's.
+The shape table is ``--widths``, else the config's own ``widths``, else
+``--layers`` x ``--d-model``.  The weights are U(-1,1) x 0.3, as the
+reference's, or with ``--init fan-in`` U(-1,1) x 2/sqrt(fan-in), which
+keeps the rescaled activations near 2^R at any width; the SGD step is
+2^-``--lr-shift``.
 With ``--proof-dir`` the crash-safe prover service
 (`repro_torch.launch.serve.ProverService`) takes over: setup warms every
 kernel with a throwaway window, training never blocks on proving, and
@@ -64,6 +72,8 @@ def run_zkdl_train(cfg, args) -> int:
 
     if args.widths:
         widths = tuple(int(w) for w in args.widths.split(","))
+    elif cfg.widths:
+        widths = cfg.widths
     else:
         layers = args.layers or cfg.n_layers
         width = args.d_model or cfg.d_model
@@ -94,7 +104,8 @@ def run_zkdl_train(cfg, args) -> int:
                            device=dev)
     rng = np.random.default_rng(0)
     ws = [quantfc.quantize(
-        rng.uniform(-1, 1, (widths[l], widths[l + 1])) * 0.3, qc)
+        rng.uniform(-1, 1, (widths[l], widths[l + 1]))
+        * (2 / widths[l] ** 0.5 if args.init == "fan-in" else 0.3), qc)
         for l in range(zk_cfg.n_layers)]
     ws = [torch.as_tensor(w, device=dev) for w in ws]
     data_x = rng.uniform(-1, 1, (args.global_batch * 8, widths[0]))
@@ -110,7 +121,8 @@ def run_zkdl_train(cfg, args) -> int:
     if service is None:
         hook = steps_mod.ZkdlProveHook(pk, rng, verify=not args.no_verify,
                                        on_proof=on_proof)
-    step_fn = steps_mod.build_zkdl_step(zk_cfg, device=dev)
+    step_fn = steps_mod.build_zkdl_step(zk_cfg, lr_shift=args.lr_shift,
+                                        device=dev)
     for step in range(args.steps):
         lo = (step * args.global_batch) % data_x.shape[0]
         batch = {
@@ -394,6 +406,11 @@ def main(argv=None) -> int:
     ap.add_argument("--widths", default=None,
                     help="heterogeneous shape table d_0..d_L, e.g. "
                          "784,512,256,128,10")
+    ap.add_argument("--init", default="fixed", choices=["fixed", "fan-in"],
+                    help="provable families: weights U(-1,1) x 0.3 "
+                         "(fixed) or x 2/sqrt(fan-in)")
+    ap.add_argument("--lr-shift", type=int, default=8,
+                    help="provable families: the SGD step is 2^-lr_shift")
     ap.add_argument("--no-verify", action="store_true",
                     help="skip verifying emitted proofs")
     ap.add_argument("--proof-dir", default=None,

@@ -71,6 +71,11 @@ class ModelConfig:
     # -- distribution hints (overridable by the launcher) -----------------------------
     fsdp: bool = False           # shard weights over the data axis too
 
+    # -- provable families -----------------------------------------------------------
+    # the shape table d_0..d_L of a network of mixed widths; empty: every
+    # layer d_model wide
+    widths: Tuple[int, ...] = ()
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // max(self.n_heads, 1))

@@ -19,8 +19,17 @@ FAMILY_ARCHS = {"dense": "qwen3_0p6b", "moe": "deepseek_v2_lite_16b",
                 "encdec": "seamless_m4t_medium", "vlm": "qwen2_vl_2b"}
 
 
+#: fields the port's ModelConfig adds to the reference's, with the
+#: default every reference architecture keeps
+PORT_FIELDS = {"widths": ()}
+
+
 def _fields(cfg):
-    return dataclasses.asdict(cfg)
+    out = dataclasses.asdict(cfg)
+    for name, default in PORT_FIELDS.items():
+        if name in out:
+            assert out.pop(name) == default, (cfg.name, name)
+    return out
 
 
 @pytest.mark.parametrize("arch", rreg.ARCHS)
