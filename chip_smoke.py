@@ -494,6 +494,7 @@ def phase_kernels(state) -> dict:
     res["pow_mul"] = _bench_pow_mul(rng, dev)
     res["qmatmul"] = _bench_qmatmul(rng, dev)
     res["msm"] = _bench_msm(rng, dev)
+    res["powmod"] = _bench_powmod(rng, dev)
     for name, r_ in res.items():
         ok &= r_["max_abs_err"] == 0
     state["kernel_bench"] = res
@@ -590,6 +591,73 @@ def _bench_msm(rng, dev) -> dict:
             "design_products_per_term": products,
             "design_ops": MODMUL_OPS * products * n,
             "design_bound_ms": bound_ms(0, MODMUL_OPS * products * n)[0]}
+
+
+#: zkReLU validity positions of the two benchmark cells: fcnn16l-w4096
+#: (19% of the 2^28 merged slots) and dlrmtop-b512 (75%, 201M)
+POW_SHARES = {"fcnn16l": 0.19, "dlrmtop": 0.75}
+
+
+def _powmod_products(exps) -> int:
+    """Montgomery products the powmod kernel's design spends on these
+    exponents: none for 0 and 1, else 6 for the 3-bit window's table and
+    3 squarings plus 1 multiply for every window below the top one."""
+    import torch
+    top = torch.zeros_like(exps)
+    for j in range(64):
+        top += (exps >> j) != 0
+    windows = (top + 2) // 3
+    return int(torch.where(exps > 1, 6 + 4 * (windows - 1), 0).sum())
+
+
+def _bench_powmod(rng, dev) -> dict:
+    """The powmod kernel against its plain version (the torch-op bit
+    loop, `powmod_plain`) on the card, bit for bit, at 2^28 FP bases with
+    random 61-bit exponents (0, 1, 2, q - 1 and 2^61 - 1 first), both
+    timed there; then the merged IPA's w laid out as at each benchmark
+    cell (ones, its share of random words, ones) and 201M FQ inverses
+    (`pow_const` by value, q - 2), with the plain loop's time beside
+    each.  Bound: the design's products (`_powmod_products`) at
+    MODMUL_OPS each, against 24 bytes an element."""
+    import torch
+    from repro_torch.field import FP, FQ, pow_const
+    from repro_torch.kernels import powmod as pk
+
+    n = MSM_N
+    b = _rand_field(FP, n, rng, dev)
+    e = _rand_field(FQ, n, rng, dev)
+    e[:5] = torch.tensor([0, 1, 2, FQ.modulus - 1, (1 << 61) - 1])
+    got = pk.powmod(FP, b, e, 61)
+    errs = {"random": _max_err(got, pk.powmod_plain(FP, b, e, 61))}
+    del got
+    ms = cuda_ms(lambda: pk.powmod(FP, b, e, 61), 3)
+    plain_ms = cuda_ms(lambda: pk.powmod_plain(FP, b, e, 61), 1)
+    products = _powmod_products(e)
+    out = {"n": n, "ms": ms, "plain_ms": plain_ms,
+           "products_per_element": products / n,
+           "bytes": 24 * n, "ops": MODMUL_OPS * products}
+    for cell, share in POW_SHARES.items():
+        w = torch.ones_like(e)
+        lo = int(n * (1 - share) / 2)
+        w[lo:lo + int(n * share)] = e[lo:lo + int(n * share)]
+        errs[cell] = _max_err(pk.powmod(FP, b, w, 61),
+                              pk.powmod_plain(FP, b, w, 61))
+        out[f"ms_{cell}"] = cuda_ms(lambda: pk.powmod(FP, b, w, 61), 3)
+        out[f"plain_ms_{cell}"] = cuda_ms(
+            lambda: pk.powmod_plain(FP, b, w, 61), 1)
+        out[f"products_{cell}"] = _powmod_products(w)
+    del b, e, w
+    n_inv = 201 * 10 ** 6
+    a = _rand_field(FQ, n_inv, rng, dev)
+    errs["inverses"] = _max_err(pow_const(FQ, a, FQ.modulus - 2),
+                                pk.powmod_plain(FQ, a, FQ.modulus - 2))
+    out["ms_inverses"] = cuda_ms(lambda: pow_const(FQ, a, FQ.modulus - 2), 3)
+    out["plain_ms_inverses"] = cuda_ms(
+        lambda: pk.powmod_plain(FQ, a, FQ.modulus - 2), 1)
+    out["n_inverses"] = n_inv
+    out["max_abs_err"] = max(errs.values())
+    out["errs"] = errs
+    return out
 
 
 def _int16(rng, shape, edges: bool = True):
@@ -2361,6 +2429,9 @@ KERNEL_META = {
                 "src/repro/kernels/qmatmul/kernel.py:93"),
     "msm": ("src/repro_torch/kernels/msm/msm.cu",
             "none (the reference's MSM is jnp code, src/repro/core/group.py)"),
+    "powmod": ("src/repro_torch/kernels/powmod/powmod.cu",
+               "none (the reference's g_pow is jnp code, "
+               "src/repro/core/group.py)"),
 }
 
 

@@ -29,6 +29,7 @@ from repro_torch.field import (FP, FQ, GROUP_GEN, decode, from_mont, mont_mul,
                                pow_const)
 from repro_torch.kernels import msm as _kernel_msm
 from repro_torch.kernels.generators import derive as _kernel_derive
+from repro_torch.kernels.powmod import powmod as _kernel_powmod
 
 P = FP.modulus
 Q = FQ.modulus
@@ -62,23 +63,10 @@ def g_pow_int(base: torch.Tensor, e: int) -> torch.Tensor:
 
 def g_pow(bases: torch.Tensor, exps_std: torch.Tensor,
           nbits: int = 61) -> torch.Tensor:
-    """Elementwise bases^exps, exponents in standard form (broadcasting).
-
-    Square-and-multiply over the low ``nbits`` bits; the loop stops at
-    the highest bit any exponent sets."""
-    shape = torch.broadcast_shapes(bases.shape, exps_std.shape)
-    acc = bases.expand(shape).contiguous()
-    exps = exps_std.expand(shape)
-    res = torch.full(shape, FP.one, dtype=torch.int64, device=bases.device)
-    if exps.numel() == 0:
-        return res
-    top = min(nbits, int(exps.max()).bit_length())
-    for j in range(top):
-        bit = ((exps >> j) & 1) != 0
-        res = torch.where(bit, g_mul(res, acc), res)
-        if j + 1 < top:
-            acc = g_mul(acc, acc)
-    return res
+    """Elementwise bases^exps, exponents in standard form (broadcasting),
+    over their low ``nbits`` bits: the powmod kernel on the card, its
+    torch-op square-and-multiply on the CPU."""
+    return _kernel_powmod(FP, bases, exps_std, nbits)
 
 
 def pow_table(bases: torch.Tensor, nbits: int = 61) -> torch.Tensor:

@@ -408,7 +408,7 @@ def prove(cfg: PipelineConfig, keys: PipelineKeys, tabs: FieldTables,
     """Runs the whole of step (c) prover-side; returns the single merged
     pair-IPA proof covering every opening block AND both zkReLU validity
     statements.  ``prof`` (a `PhaseProfile`) attributes the sub-phases
-    claim-combine / zkrelu-validity / ipa-rounds / sigma."""
+    claim-combine / zkrelu-validity / h-basis / ipa-rounds / sigma."""
     with _sub(prof, "claim-combine"):
         blocks, (u_relu, v, v_q1, v_r) = prover_blocks(
             cfg, tabs, blinds, x_blinds, ch, mat, anc, op,
@@ -445,7 +445,8 @@ def prove(cfg: PipelineConfig, keys: PipelineKeys, tabs: FieldTables,
                 blind, claim,
                 (keys.g_merged_table, keys.h_merged, keys.h_merged_table, w))
     else:
-        hh = group.g_pow(keys.h_merged, from_mont(FQ, w))
+        with _sub(prof, "h-basis"):
+            hh = group.g_pow(keys.h_merged, from_mont(FQ, w))
         stmt = (keys.g_merged, hh, keys.validity.h_blind, a_hat, b_hat,
                 blind, claim)
     (ipa_agg,) = ipa.pair_prove_many([stmt], t, rng, prof=prof)

@@ -40,11 +40,15 @@ PHASES = ("stack", "commit", "challenges", "matmul", "anchor", "openings")
 # sigma).  Tracked separately from `phases_s` so `accounted_s` (which
 # the --smoke attribution check compares against total_s) never double
 # counts.
+# `h-basis` is the merged opening's H basis h^w, one elementwise power
+# of every merged slot (only where the merged length is past the
+# pow-table limit, as at full width).
 # The `matmul` phase splits into one sub-phase per relation family, each
 # over all of that family's shape buckets (table fixing, the per-bucket
 # claim split and the batched sumchecks).
-SUB_PHASES = ("claim-combine", "ipa-rounds", "sigma", "zkrelu-validity",
-              "sumcheck-fwd", "sumcheck-bwd", "sumcheck-gw")
+SUB_PHASES = ("claim-combine", "h-basis", "ipa-rounds", "sigma",
+              "zkrelu-validity", "sumcheck-fwd", "sumcheck-bwd",
+              "sumcheck-gw")
 
 
 def subphase(prof, name: str):

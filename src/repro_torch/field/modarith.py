@@ -195,18 +195,10 @@ def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def pow_const(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
-    """a^e for a python-int exponent (square & multiply, host-side bits)."""
-    if e == 0:
-        return torch.full_like(a, spec.one)
-    result = None
-    base = a
-    while e:
-        if e & 1:
-            result = base if result is None else mont_mul(spec, result, base)
-        e >>= 1
-        if e:
-            base = mont_mul(spec, base, base)
-    return result
+    """a^e for a python-int exponent in [0, 2^64): one powmod launch on a
+    CUDA tensor (the exponent by value), host-side bits on a CPU one."""
+    from repro_torch.kernels.powmod import powmod
+    return powmod(spec, a, e)
 
 
 def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
@@ -217,7 +209,7 @@ def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Elementwise inverses of a flat vector.
 
-    Fermat per element (61 squarings of the whole vector) instead of the
+    Fermat per element (one powmod launch on the card) instead of the
     reference's sequential prefix-product scan: every inverse is unique,
     so the values agree.  Like the reference's Montgomery trick, one
     zero entry zeroes the whole output."""

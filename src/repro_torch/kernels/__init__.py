@@ -21,6 +21,15 @@
                          rounds, the verifier's multi-exponentiations)
                          runs through it; on the CPU the sort-based
                          Pippenger in torch ops stays.
+* ``powmod``          -- elementwise exponentiation, the port's own kernel
+                         (it replaces no Pallas kernel: the reference's
+                         ``g_pow`` is jnp code): on the card every
+                         ``group.g_pow`` and ``field.pow_const`` (so every
+                         inverse) is one launch.  Bound by operations; one
+                         element a thread with its own top exponent bit,
+                         so whole warps of unit exponents exit at once,
+                         and a fixed 3-bit window keeps a warp's threads in
+                         step on random exponents.
 
 Each directory holds the ``.cu`` source and an ``ops.py`` with the
 wrapper, its plain PyTorch version (used for CPU tensors, and as the
@@ -34,13 +43,15 @@ def _wrappers() -> dict:
     from repro_torch.kernels.generators.ops import derive
     from repro_torch.kernels.modmul.ops import modmul
     from repro_torch.kernels.msm.ops import msm
+    from repro_torch.kernels.powmod.ops import powmod
     from repro_torch.kernels.qmatmul.ops import qmatmul_i64
     from repro_torch.kernels.sumcheck_fold.ops import (fold, fold_halves,
                                                        pow_mul_halves)
     from repro_torch.kernels.validity_tables.ops import build_tables
     return {"modmul": modmul, "fold": fold, "fold_halves": fold_halves,
             "validity_tables": build_tables, "generators": derive,
-            "pow_mul": pow_mul_halves, "qmatmul": qmatmul_i64, "msm": msm}
+            "pow_mul": pow_mul_halves, "qmatmul": qmatmul_i64, "msm": msm,
+            "powmod": powmod}
 
 
 def launch_counts() -> dict:

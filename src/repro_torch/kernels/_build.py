@@ -33,6 +33,7 @@ SOURCES = {
     "generators": "generators/generators.cu",
     "qmatmul": "qmatmul/qmatmul.cu",
     "msm": "msm/msm.cu",
+    "powmod": "powmod/powmod.cu",
 }
 HEADERS = ("mont64.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -57,6 +58,8 @@ SIGNATURES = {
                              _P),
     "zk_msm": (_P, _INT, _P, _P, _I64, _I64, _I64, _INT, _INT, _U64, _U64,
                _U64, _U64, _P, _P, _P),
+    "zk_powmod": (_P, _I64, _P, _I64, _U64, _U64, _P, _I64, _U64, _U64, _U64,
+                  _P),
 }
 
 _lock = threading.Lock()

@@ -265,6 +265,120 @@ def test_prove_on_card_gives_golden_bytes_through_msm_kernel(dev,
     assert _msm_launches() > before
 
 
+#: exponent edges of the powmod tests: 0, 1, 2, q - 1 and 2^61 - 1
+_POW_EDGES = [0, 1, 2, FQ.modulus - 1, (1 << 61) - 1]
+
+
+def _pow_inputs(spec, n, seed, dev):
+    """n canonical bases (0, one and m - 1 first) and n exponents laid out
+    like the merged IPA's w: a run of ones, random words below q with the
+    edge exponents at their head, a run of ones."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, spec.modulus, n, dtype=np.uint64) % spec.modulus
+    e = rng.integers(0, FQ.modulus, n, dtype=np.uint64) % FQ.modulus
+    b, e = b.astype(np.int64), e.astype(np.int64)
+    b[:3] = [0, spec.one, spec.modulus - 1][:n]
+    run = n // 4
+    e[:run], e[n - run:] = 1, 1
+    k = min(len(_POW_EDGES), n - 2 * run)
+    e[run:run + k] = _POW_EDGES[:k]
+    return torch.as_tensor(b, device=dev), torch.as_tensor(e, device=dev)
+
+
+def _powmod_launches():
+    return kernels.launch_counts()["powmod"]
+
+
+@pytest.mark.parametrize("nbits", [1, 17, 61, 63])
+@pytest.mark.parametrize("n", [0, 1, 33, (1 << 20) + 3])
+@pytest.mark.parametrize("spec", [FQ, FP], ids=["Fq", "Fp"])
+def test_powmod_kernel_matches_plain(dev, spec, n, nbits):
+    from repro_torch.kernels import powmod as pk
+    b, e = _pow_inputs(spec, n, n + nbits, dev)
+    if nbits == 63:
+        e[n // 2:] |= 1 << 62             # words past 61 bits, all 63 used
+    before = _powmod_launches()
+    got = pk.powmod(spec, b, e, nbits)
+    assert _powmod_launches() == before + 1
+    assert torch.equal(got, pk.powmod_plain(spec, b, e, nbits))
+
+
+@pytest.mark.parametrize("spec", [FQ, FP], ids=["Fq", "Fp"])
+def test_powmod_kernel_broadcasts_and_scalar_exponents(dev, spec):
+    """A 0-dim base against a vector, a vector against a 0-dim exponent,
+    and `pow_const` (the exponent by value) with 0, 1 and m - 2 on a
+    0-dim tensor and on a vector: one launch each, equal to the plain
+    version."""
+    from repro_torch.field import pow_const
+    from repro_torch.kernels import powmod as pk
+    b, e = _pow_inputs(spec, 4099, 5, dev)
+    cases = [(b[5], e), (b, e[3 * 4099 // 4 - 1]), (b[:1], e),
+             (b[:, None][:8], e[None, :8])]
+    before = _powmod_launches()
+    for base, exp in cases:
+        assert torch.equal(pk.powmod(spec, base, exp, 61),
+                           pk.powmod_plain(spec, base, exp, 61))
+    for c in (0, 1, spec.modulus - 2):
+        for base in (b[7], b):
+            assert torch.equal(pow_const(spec, base, c),
+                               pk.powmod_plain(spec, base, c))
+    assert _powmod_launches() == before + len(cases) + 6
+
+
+@pytest.mark.parametrize("with_zero", [False, True])
+def test_batch_inv_on_card(dev, with_zero):
+    """Inverses equal python-int inverses in one powmod launch; one zero
+    entry zeroes the whole output, as on the CPU."""
+    from repro_torch.field import batch_inv, decode
+    a = _field(FQ, 1000, 9, dev)[3:].clone()
+    if with_zero:
+        a[17] = 0
+    before = _powmod_launches()
+    got = batch_inv(FQ, a)
+    assert _powmod_launches() == before + 1
+    assert torch.equal(got, batch_inv(FQ, a.cpu()).to(dev))
+    q = FQ.modulus
+    vals = decode(FQ, a)
+    want = [0] * len(vals) if with_zero else [pow(int(v), q - 2, q)
+                                              for v in vals]
+    assert list(decode(FQ, got)) == want
+
+
+def test_prove_on_card_gives_golden_bytes_through_powmod_kernel(
+        dev, monkeypatch):
+    """The uniform 2x4 MLP proved and verified on the card with every
+    elementwise power in the powmod kernel: its torch-op loop is made to
+    fail if anything calls it on a CUDA tensor."""
+    import hashlib
+
+    from repro_torch.core.pipeline import (GraphBuilder, compile,
+                                           encode_proof, prove_session,
+                                           verify_bytes)
+    from repro_torch.core.quantfc import QuantConfig, synthetic_sgd_trajectory
+    from repro_torch.kernels.powmod import ops as pops
+
+    plain = pops.powmod_plain
+
+    def refuse_on_card(spec, bases, *args, **kwargs):
+        if bases.device.type == "cuda":
+            raise AssertionError("the torch-op power loop ran on the card")
+        return plain(spec, bases, *args, **kwargs)
+    monkeypatch.setattr(pops, "powmod_plain", refuse_on_card)
+    qc = QuantConfig(16, 4)
+    graph = GraphBuilder(batch=2).input(4).dense(4).relu().dense(4).relu() \
+        .output()
+    pk, vk = compile(graph, qc, n_steps=1, device=dev)
+    wits = synthetic_sgd_trajectory(1, 2, 2, 4, qc, seed=7, device=dev)
+    kernels.reset_launch_counts()
+    raw = encode_proof(prove_session(pk, wits, np.random.default_rng(7)))
+    assert _powmod_launches() > 0
+    assert hashlib.sha256(raw).hexdigest() == (
+        "a538160f1da619bd39439420f78d24af9089dd1eacd770f3ce24d76dd80c2422")
+    before = _powmod_launches()
+    assert verify_bytes(vk, raw)
+    assert _powmod_launches() > before
+
+
 def test_scbd_on_card_gives_golden_digest(dev):
     """SC-BD's wiring tables built and summed on the card: the proof of
     the audit-domain golden tensor hashes to the reference's digest

@@ -276,3 +276,69 @@ def test_msm_segments_equal_concatenated_rows_on_cpu(n2):
         group.msm(torch.cat([g[n2:], h[:n2]]), torch.cat([ea[:n2], eb[n2:]])),
         group.msm(torch.cat([g[:n2], h[n2:]]),
                   torch.cat([ea[n2:], eb[:n2]]))]))
+
+
+def _pow_words(spec, shape, seed):
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, spec.modulus, shape, dtype=np.uint64) % spec.modulus
+    e = rng.integers(0, FQ.modulus, shape, dtype=np.uint64) % FQ.modulus
+    return (torch.as_tensor(b.astype(np.int64)),
+            torch.as_tensor(e.astype(np.int64)))
+
+
+def test_powmod_wrapper_takes_plain_on_cpu_and_counts_no_launch():
+    """CPU tensors take the plain version (no launch counted); any other
+    device must launch the kernel or raise."""
+    from repro_torch.kernels import powmod as pk
+    b, e = _pow_words(FP, 40, 1)
+    kernels.reset_launch_counts()
+    assert torch.equal(pk.powmod(FP, b, e, 61), pk.powmod_plain(FP, b, e, 61))
+    assert torch.equal(pk.powmod(FQ, b % FQ.modulus, 12345),
+                       pk.powmod_plain(FQ, b % FQ.modulus, 12345))
+    assert kernels.launch_counts()["powmod"] == 0
+    meta = torch.empty(8, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        pk.powmod(FP, meta, meta)
+    with pytest.raises(ValueError):
+        pk.powmod(FP, meta, 5)
+    assert kernels.launch_counts()["powmod"] == 0
+
+
+@pytest.mark.parametrize("case", ["dtype", "exp_dtype", "nbits_0",
+                                  "nbits_64", "scalar_neg", "scalar_2_64",
+                                  "shapes"])
+def test_powmod_wrapper_refuses_malformed_inputs(case):
+    from repro_torch.kernels import powmod as pk
+    b, e = _pow_words(FP, 4, 2)
+    bad = {
+        "dtype": lambda: pk.powmod(FP, b.to(torch.int32), e),
+        "exp_dtype": lambda: pk.powmod(FP, b, e.to(torch.int32)),
+        "nbits_0": lambda: pk.powmod(FP, b, e, nbits=0),
+        "nbits_64": lambda: pk.powmod(FP, b, e, nbits=64),
+        "scalar_neg": lambda: pk.powmod(FP, b, -1),
+        "scalar_2_64": lambda: pk.powmod(FP, b, 1 << 64),
+        "shapes": lambda: pk.powmod(FP, b, e[:3]),
+    }[case]
+    with pytest.raises((ValueError, TypeError)):
+        bad()
+
+
+@pytest.mark.parametrize("nbits", [1, 17, 61])
+def test_g_pow_and_pow_const_through_wrapper_match_python_ints(nbits):
+    """`group.g_pow` (broadcasting, the low nbits of each exponent) and
+    `pow_const` (the exponent whole) on CPU tensors against python-int
+    powers."""
+    from repro_torch.core import group
+    from repro_torch.field import decode, pow_const
+    b, e = _pow_words(FP, 24, 3 + nbits)
+    e[:4] = torch.tensor([0, 1, FQ.modulus - 1, (1 << 61) - 1])
+    p, mask = FP.modulus, (1 << nbits) - 1
+    bv = [int(v) for v in decode(FP, b)]
+    ev = [int(v) for v in e]
+    got = [int(v) for v in decode(FP, group.g_pow(b, e, nbits))]
+    assert got == [pow(x, y & mask, p) for x, y in zip(bv, ev)]
+    got = decode(FP, group.g_pow(b[5], e[None, :6], nbits)).reshape(-1)
+    assert [int(v) for v in got] == [pow(bv[5], y & mask, p) for y in ev[:6]]
+    for c in (0, 1, (1 << 61) - 1, FP.modulus - 2, (1 << 64) - 1):
+        got = [int(v) for v in decode(FP, pow_const(FP, b, c))]
+        assert got == [pow(x, c, p) for x in bv]
